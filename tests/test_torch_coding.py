@@ -1,0 +1,177 @@
+"""PyTorch port, host glue of ops/coding.py against the JAX package:
+FrameSpec, the plain plan tables, narrowing, the archive walk and the
+sidecar-table validation. Inputs come from numpy seeds; tolerance exact.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+from trpx_tpu.native import codec as ncodec
+from trpx_tpu.ops import coding as jcoding
+from trpx_tpu_torch.ops import coding as tcoding
+from trpx_tpu_torch.ops.cuda_pack import plan_batch
+
+from test_torch_pack import _any_frames, u16_frames
+
+DTYPES = [np.uint8, np.int8, np.uint16, np.int16, np.uint32, np.int32]
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("n", [1, 12, 1000, 512 * 512])
+def test_frame_spec_matches_jax(dtype, n):
+    ours = tcoding.FrameSpec.for_dtype(n, dtype)
+    ref = jcoding.FrameSpec.for_dtype(n, dtype)
+    for name in ("n", "block", "signed", "max_width", "nb", "n_padded",
+                 "worst_bits", "n_words", "max_block_bits"):
+        assert getattr(ours, name) == getattr(ref, name), name
+    assert ours.torch_dtype.itemsize == np.dtype(dtype).itemsize
+
+
+def test_frame_spec_guards():
+    with pytest.raises(TypeError):
+        tcoding.FrameSpec.for_dtype(100, np.uint64)
+    with pytest.raises(ValueError, match="32-bit bit offsets"):
+        tcoding.FrameSpec.for_dtype(2**26, np.int32)
+
+
+PLAN_CASES = [("u16", "poisson", 1000), ("u16", "zero", 100),
+              ("u16", "hot", 1000), ("u16", "first_block_zero", 1000),
+              ("i16", None, 500), ("i32", None, 301), ("u8", None, 97)]
+
+
+@pytest.mark.parametrize("dt,kind,n", PLAN_CASES)
+def test_plan_tables_match_plan_frame(dt, kind, n):
+    if dt == "u16":
+        fr = u16_frames(kind, n)
+    else:
+        fr = _any_frames({"i16": np.int16, "i32": np.int32,
+                          "u8": np.uint8}[dt], n, seed=n)
+    spec = tcoding.FrameSpec.for_dtype(n, fr.dtype)
+    jspec = jcoding.FrameSpec.for_dtype(n, fr.dtype)
+    padded = tcoding._pad_batch(fr, spec)
+    ours = plan_batch(spec, torch.from_numpy(padded))
+    for f in range(fr.shape[0]):
+        x = padded[f]
+        x = x.view(np.int32) if x.dtype == np.uint32 else x.astype(np.int32)
+        ref = jcoding.plan_frame(jspec, jnp.asarray(x))
+        for key in ("width", "hb", "hv", "starts"):
+            np.testing.assert_array_equal(
+                ours[key][f].numpy(), np.asarray(ref[key]).astype(np.int64),
+                err_msg=key)
+        assert int(ours["total_bits"][f]) == int(ref["total_bits"])
+
+
+def test_narrow_values_matches_jax():
+    rng = np.random.default_rng(3)
+    i32 = rng.integers(-2**31, 2**31, 4000, dtype=np.int64).astype(np.int32)
+    u16 = rng.integers(0, 2**16, 4000).astype(np.uint16)
+    for vals in (i32, u16):
+        for dtype in DTYPES:
+            if vals.dtype == np.uint16 and np.dtype(dtype).kind == "i":
+                continue
+            np.testing.assert_array_equal(
+                tcoding.narrow_values(vals, dtype),
+                jcoding.narrow_values(vals, dtype))
+
+
+def _foreign(arch):
+    from trpx_tpu.format.pycodec import TrpxArchive
+
+    return TrpxArchive.from_bytes(arch.to_bytes())
+
+
+@pytest.mark.parametrize("indexed", [False, True])
+def test_walk_archive_matches_jax(indexed):
+    fr = u16_frames("hot", 1000)
+    arch = ncodec.encode(fr)
+    spec = tcoding.FrameSpec.for_dtype(1000, np.uint16)
+    jspec = jcoding.FrameSpec.for_dtype(1000, np.uint16)
+    a, b = (arch, arch) if indexed else (_foreign(arch), _foreign(arch))
+    widths, words = tcoding.walk_archive(a, spec)
+    jw, _, jwords = jcoding.walk_archive(b, jspec)
+    np.testing.assert_array_equal(widths, jw)
+    sizes = np.diff(np.append(arch.frame_index, arch.meta.memory_size))
+    for f, nbytes in enumerate(sizes):
+        mine = words[f].view(np.uint8)
+        np.testing.assert_array_equal(mine[:nbytes],
+                                      jwords[f].view(np.uint8)[:nbytes])
+        # two zero words of slack past the stream for the word gather
+        assert mine.size >= nbytes + 8 and not mine[nbytes:].any()
+    np.testing.assert_array_equal(a.frame_index, arch.frame_index)
+    np.testing.assert_array_equal(a.width_table, widths.astype(np.uint8))
+
+
+def test_walk_uses_a_valid_sidecar_table(monkeypatch):
+    arch = ncodec.encode(u16_frames("poisson", 1000))
+    spec = tcoding.FrameSpec.for_dtype(1000, np.uint16)
+    widths, words = tcoding.walk_archive(arch, spec)   # caches the tables
+
+    def no_walk(*a, **k):
+        raise AssertionError("walked despite a valid width table")
+
+    monkeypatch.setattr(tcoding.native, "walk_indexed", no_walk)
+    monkeypatch.setattr(tcoding.native, "walk", no_walk)
+    w2, words2 = tcoding.walk_archive(arch, spec)
+    np.testing.assert_array_equal(w2, widths)
+    np.testing.assert_array_equal(words2, words)
+
+
+def test_validate_tables_rejects_stale_or_crafted_tables():
+    fr = u16_frames("poisson", 1000)
+    arch = ncodec.encode(fr)
+    spec = tcoding.FrameSpec.for_dtype(1000, np.uint16)
+    widths, _ = tcoding.walk_archive(arch, spec)
+    meta = arch.meta
+    starts = np.asarray(arch.frame_index)
+    ends = np.append(starts[1:], meta.memory_size)
+    tcoding.validate_tables(spec, meta, widths, starts, ends)
+    bad = widths.copy()
+    bad[1, 5] += 1
+    with pytest.raises(ValueError, match="disagree"):
+        tcoding.validate_tables(spec, meta, bad, starts, ends)
+    with pytest.raises(ValueError, match="prolix_bits"):
+        tcoding.validate_tables(spec, meta, widths + 20, starts, ends)
+    with pytest.raises(ValueError, match="partition"):
+        tcoding.validate_tables(spec, meta, widths, starts + 1, ends)
+
+
+def test_stale_sidecar_table_is_walked_instead():
+    fr = u16_frames("hot", 1000)
+    arch = ncodec.encode(fr)
+    stale = np.zeros((3, tcoding.FrameSpec.for_dtype(1000, np.uint16).nb),
+                     np.uint8)
+    stale[:, 0] = 3
+    arch.width_table = stale
+    out = tcoding.decode(arch, np.uint16, device="cpu")
+    np.testing.assert_array_equal(out, fr)
+    assert not np.array_equal(arch.width_table, stale)
+
+
+def test_pure_python_walk_matches_native(monkeypatch):
+    fr = u16_frames("hot", 100)
+    arch = ncodec.encode(fr)
+    spec = tcoding.FrameSpec.for_dtype(100, np.uint16)
+    w_native, words_native = tcoding.walk_archive(_foreign(arch), spec)
+    monkeypatch.setattr(tcoding.native, "available", lambda: False)
+    w_py, words_py = tcoding.walk_archive(_foreign(arch), spec)
+    np.testing.assert_array_equal(w_py, w_native)
+    np.testing.assert_array_equal(words_py, words_native)
+    np.testing.assert_array_equal(
+        tcoding.decode(_foreign(arch), np.uint16, device="cpu"), fr)
+
+
+def test_assemble_archive_matches_jax():
+    fr = u16_frames("hot", 1000)
+    spec = tcoding.FrameSpec.for_dtype(1000, np.uint16)
+    from trpx_tpu_torch.ops.cuda_pack import encode_batch_plain
+
+    w, b, m = encode_batch_plain(
+        spec, torch.from_numpy(tcoding._pad_batch(fr, spec)))
+    w, b, m = w.numpy().view(np.uint32), b.numpy(), m.numpy()
+    jspec = jcoding.FrameSpec.for_dtype(1000, np.uint16)
+    ours = tcoding.assemble_archive(spec, w, b, m, (10, 100))
+    ref = jcoding.assemble_archive(jspec, w, b, m, (10, 100))
+    assert ours.to_bytes() == ref.to_bytes()
+    np.testing.assert_array_equal(ours.frame_index, ref.frame_index)

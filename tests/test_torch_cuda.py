@@ -1,0 +1,113 @@
+"""PyTorch port on a CUDA card: each kernel against its plain version.
+
+Every test here needs a card and skips without one. The module imports
+nothing of JAX, so on a machine with a card and without JAX it runs
+without the suite's conftest (which imports jax):
+
+    python -m pytest --noconftest -q tests/test_torch_cuda.py
+
+Tolerance: exact (lossless integer codec).
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from trpx_tpu.native import codec as ncodec
+from trpx_tpu_torch import compress, decompress
+from trpx_tpu_torch.ops import (
+    FrameSpec,
+    decode_batch,
+    decode_batch_plain,
+    decoded_dtype,
+    encode_batch,
+    encode_batch_plain,
+    walk_archive,
+)
+from trpx_tpu_torch.ops.coding import _pad_batch
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    return torch.device("cuda")
+
+
+def _frames(dtype, n, seed, F=3):
+    rng = np.random.default_rng(seed)
+    info = np.iinfo(dtype)
+    if info.min < 0:
+        fr = rng.integers(-300, 300, (F, n)).clip(info.min, info.max)
+        fr = fr.astype(dtype)
+        fr[0, 0] = info.min
+    else:
+        fr = rng.poisson(3.0, (F, n)).astype(dtype)
+        fr[0, rng.integers(0, n, 20)] = info.max
+    fr[-1, : min(n, 40)] = 0
+    return fr
+
+
+CASES = [(np.uint16, 512 * 512), (np.uint16, 1000), (np.uint16, 100),
+         (np.uint8, 1001), (np.int8, 999), (np.int16, 1000),
+         (np.uint32, 777), (np.int32, 1001)]
+
+
+@pytest.mark.parametrize("dtype,n", CASES)
+def test_pack_kernel_matches_plain(cuda, dtype, n):
+    fr = _frames(dtype, n, seed=n)
+    spec = FrameSpec.for_dtype(n, dtype)
+    x = torch.from_numpy(_pad_batch(fr, spec)).to(cuda)
+    before = encode_batch.launches
+    got = encode_batch(spec, x)
+    assert encode_batch.launches == before + 1
+    for g, w in zip(got, encode_batch_plain(spec, x)):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("dtype,n", CASES)
+def test_unpack_kernel_matches_plain(cuda, dtype, n):
+    fr = _frames(dtype, n, seed=n + 1)
+    spec = FrameSpec.for_dtype(n, dtype)
+    widths, words = walk_archive(ncodec.encode(fr), spec)
+    wd = torch.from_numpy(widths.astype(np.uint8)).to(cuda)
+    wo = torch.from_numpy(words.view(np.int32)).to(cuda)
+    for odt in {decoded_dtype(spec), torch.int32}:
+        before = decode_batch.launches
+        got = decode_batch(spec, wo, wd, odt)
+        assert decode_batch.launches == before + 1
+        want = decode_batch_plain(spec, wo, wd, odt)
+        if odt == torch.uint16:
+            got, want = got.view(torch.int16), want.view(torch.int16)
+        assert torch.equal(got, want)
+    np.testing.assert_array_equal(
+        decode_batch(spec, wo, wd, decoded_dtype(spec)).cpu().numpy()
+        .astype(dtype), fr)
+
+
+def test_signed_target_sign_extends_on_card(cuda):
+    fr = _frames(np.uint16, 600, seed=3)
+    fr[fr > 2**14] = 2**14
+    arch = ncodec.encode(fr)
+    out = decompress(arch, dtype=np.int16, device=cuda)
+    np.testing.assert_array_equal(out, ncodec.decode(arch, np.int16))
+
+
+def test_main_path_round_trip(cuda):
+    fr = _frames(np.uint16, 512 * 512, seed=9, F=4).reshape(4, 512, 512)
+    e0, d0 = encode_batch.launches, decode_batch.launches
+    arch = compress(fr, device=cuda)
+    assert arch.to_bytes() == ncodec.encode(
+        fr.reshape(4, -1), dimensions=(512, 512)).to_bytes()
+    np.testing.assert_array_equal(decompress(arch, device=cuda), fr)
+    assert encode_batch.launches > e0 and decode_batch.launches > d0
+
+
+def test_kernel_rejects_non_contiguous_input(cuda):
+    spec = FrameSpec.for_dtype(100, np.uint16)
+    x = torch.zeros((spec.n_padded, 2), dtype=torch.int16,
+                    device=cuda).view(torch.uint16).T
+    with pytest.raises(ValueError):
+        encode_batch(spec, x)

@@ -1,0 +1,21 @@
+"""trpx_tpu_torch — the TRPX (TERSE/PROLIX) codec on PyTorch and CUDA.
+
+A port of ``trpx_tpu`` (JAX/Pallas on a TPU) to PyTorch on an NVIDIA
+Hopper GPU. It shares the JAX package's JAX-free layers — ``format``
+(header, bit semantics, the archive object), ``native`` (the C++ host
+walker and codec) and ``io`` — and replaces its device path:
+
+* ``ops/``    — encode/decode of frame batches through hand-written CUDA
+  kernels (``csrc/pack.cu``, ``csrc/unpack.cu``), each beside its plain
+  PyTorch version, which CPU tensors run;
+* ``api``     — ``compress`` / ``decompress`` with an explicit ``device``;
+* ``_build``  — builds the kernels with ``nvcc`` at first use.
+
+Importing the package loads no CUDA code and never imports ``jax``.
+"""
+
+__version__ = "0.1.0"
+
+from .api import compress, decompress, output_dtype  # noqa: F401
+
+__all__ = ["compress", "decompress", "output_dtype"]

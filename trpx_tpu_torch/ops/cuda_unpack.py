@@ -1,0 +1,109 @@
+"""TRPX decode of a frame batch: the unpack kernel's wrapper and its plain
+PyTorch version.
+
+``decode_batch`` launches the CUDA kernel (``csrc/unpack.cu``) for CUDA
+tensors and runs ``decode_batch_plain`` for CPU tensors. Inputs are the
+host walk's outputs: ``words`` (F, W) int32 holding each frame's uint32
+stream words (at least two words past each stream's last bit) and
+``widths`` (F, nb) uint8. The output is flat (F, n): uint16 for unsigned
+targets of at most 16 bits, else int32 (sign-extended iff the target spec
+is signed; a 33-bit field keeps its low 32 bits). The host narrows it to
+the target dtype (``coding.narrow_values``).
+
+The plain version derives each block's bits from the widths as
+``trpx_tpu/ops/pallas_unpack.py:block_bits_host`` does, takes their
+exclusive prefix, and reads every value with the two-word gather of
+``trpx_tpu/ops/coding.py:decode_frame_device``, in int64 (PyTorch has no
+uint32 shifts).
+"""
+
+from __future__ import annotations
+
+import torch
+
+from .. import _build
+from .cuda_pack import block_counts, header_codes
+
+
+def decoded_dtype(spec) -> torch.dtype:
+    """The unpack output type for a target spec."""
+    if not spec.signed and spec.max_width <= 16:
+        return torch.uint16
+    return torch.int32
+
+
+def decode_batch_plain(spec, words: torch.Tensor, widths: torch.Tensor,
+                       out_dtype: torch.dtype) -> torch.Tensor:
+    """Plain PyTorch decode on the inputs' device; the reference the
+    unpack kernel is held against."""
+    F, W = words.shape
+    B = spec.block
+    w = widths.to(torch.int64)
+    hb, _ = header_codes(w)
+    block_bits = hb + w * block_counts(spec, w.device)
+    starts = torch.cumsum(block_bits, dim=1) - block_bits
+    w = w[..., None]
+    j = torch.arange(B, dtype=torch.int64, device=w.device)
+    off = ((starts + hb)[..., None] + j * w).reshape(F, -1)
+    # clamped like the kernel: inconsistent tables cannot index past a row
+    idx = (off >> 5).clamp(0, W - 2)
+    s = off & 31
+    wd = words.to(torch.int64) & 0xFFFFFFFF
+    lo = torch.gather(wd, 1, idx)
+    hi = torch.gather(wd, 1, idx + 1)
+    u = ((lo >> s) | ((hi << (32 - s)) & 0xFFFFFFFF)).reshape(F, -1, B)
+    mask = (1 << w.clamp(max=32)) - 1
+    u = u & mask
+    if spec.signed:
+        top = (u >> (w - 1).clamp(min=0)) & 1
+        neg = (w > 0) & (w < 32) & (top == 1)
+        u = torch.where(neg, u | (0xFFFFFFFF ^ mask), u)
+    u = u.reshape(F, -1)[:, : spec.n]
+    if out_dtype == torch.uint16:
+        return torch.where(u >= 2**15, u - 2**16, u).to(torch.int16).view(
+            torch.uint16)
+    return torch.where(u >= 2**31, u - 2**32, u).to(torch.int32)
+
+
+def _check(spec, words, widths, out_dtype) -> None:
+    if words.dtype != torch.int32 or widths.dtype != torch.uint8:
+        raise TypeError("words must be int32 and widths uint8, got "
+                        f"{words.dtype} and {widths.dtype}")
+    if out_dtype not in (torch.int32, decoded_dtype(spec)):
+        raise TypeError(f"no {out_dtype} output for {spec}")
+    if (words.ndim != 2 or widths.ndim != 2 or words.shape[1] < 2
+            or words.shape[0] < 1 or widths.shape != (words.shape[0],
+                                                       spec.nb)):
+        raise ValueError(
+            f"need words (F >= 1, W >= 2) and widths (F, {spec.nb}), got "
+            f"{tuple(words.shape)} and {tuple(widths.shape)}")
+    if words.device != widths.device:
+        raise ValueError("words and widths must be on one device")
+    if not (words.is_contiguous() and widths.is_contiguous()):
+        raise ValueError("words and widths must be contiguous")
+
+
+def decode_batch(spec, words: torch.Tensor, widths: torch.Tensor,
+                 out_dtype: torch.dtype) -> torch.Tensor:
+    """Decode a batch: the CUDA unpack kernel for CUDA tensors,
+    :func:`decode_batch_plain` for CPU tensors. Counts kernel launches in
+    ``decode_batch.launches``."""
+    _check(spec, words, widths, out_dtype)
+    if words.device.type == "cpu":
+        return decode_batch_plain(spec, words, widths, out_dtype)
+    if words.device.type != "cuda":
+        raise ValueError(f"no unpack kernel for device {words.device}")
+    lib = _build.load()
+    F, W = words.shape
+    dev = words.device
+    out = torch.empty((F, spec.n), dtype=out_dtype, device=dev)
+    rc = lib.trpx_unpack(
+        words.data_ptr(), widths.data_ptr(), F, W, spec.n, spec.block,
+        int(spec.signed), int(out_dtype == torch.uint16), out.data_ptr(),
+        dev.index, torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(rc, "unpack")
+    decode_batch.launches += 1
+    return out
+
+
+decode_batch.launches = 0
