@@ -2,21 +2,37 @@
 
     python3 chip_smoke.py
 
-Drives the port's main path, ``trpx_tpu_torch.compress`` -> ``.trpx`` ->
-``trpx_tpu_torch.decompress``, on 256 seeded 512x512 uint16 diffraction-like
-frames (Poisson(3) with hot pixels at 65535), through the hand-written CUDA
-pack and unpack kernels. Phases, one line each:
+Drives the port's two paths through ``trpx_tpu_torch.compress`` ->
+``.trpx`` -> ``trpx_tpu_torch.decompress``: 256 seeded 512x512 uint16
+diffraction-like frames (Poisson(3) with hot pixels at 65535) through the
+one-CTA-per-frame CUDA pack and unpack kernels, and big frames, 32 of
+2048x2048 and 8 of 4096x4096 uint32 (Poisson(3) with 200 hot pixels per
+frame at 2,000,000,000, the 2K/4K u32 batches of ``bench.py``), through
+the tiled CUDA kernels. Phases, one line each (more for phase 5):
 
 1. the card (``nvidia-smi`` name and power limit), torch and CUDA versions;
 2. the kernels' build from ``trpx_tpu_torch/csrc`` (seconds);
 3. each kernel against its plain PyTorch version on the card, exactly
-   (lossless integer codec: tolerance 0), at the main path's shape and on
-   an all-zero frame, partial blocks (n = 1000, n = 100) and every other
-   device dtype;
-4. the main path: archive bytes equal the native host codec's, pixels
+   (lossless integer codec: tolerance 0): the untiled kernels at the
+   512x512 path's shape, on an all-zero frame, partial blocks and every
+   other device dtype; the tiled kernels at 64-block tiles on every device
+   dtype (partial last tile and block, a constant frame, a zero first
+   tile, the widest field at a tile's first and last value) and at the
+   default tile size on 4 frames of 2048x2048 u32;
+4. the 512x512 path: archive bytes equal the native host codec's, pixels
    round-trip exactly, a natively encoded ("foreign") archive decodes to
-   the same pixels, and both kernels' launch counters moved;
-5. kernel and plain-version times (CUDA events) and frames/s.
+   the same pixels; the untiled kernels' launch counters moved and the
+   tiled ones did not;
+5. the big-frame path, the same checks with the tiled kernels' counters
+   moving and the untiled ones not, then the tiled kernels against their
+   plain versions at each of its shapes, exactly, and a breakdown of
+   compress and decompress of 32 x 2048x2048 by layer from
+   ``torch.profiler`` (the ``trpx.*`` ranges of ``ops.coding``, and the
+   device time of each kernel and copy);
+6. kernel and plain-version times (CUDA events): each kernel at its
+   path's shapes, and the other route at the 512x512 and 2048x2048 shapes
+   (the tiled kernels at 256 x 512x512 u16, the untiled ones at
+   32 x 2048x2048 u32).
 
 It then prints the card line, a JSON line of per-kernel results and, last,
 ``{"ok": true, "device": {...}}``. Any failure exits non-zero before that
@@ -40,14 +56,20 @@ import torch
 F_MAIN = 256
 SIDE = 512
 SEED = 0
+#: (side, frames) of the big-frame path: bench.py's 2K and 4K u32 batches
+BIG = ((2048, 32), (4096, 8))
+HOT_U32 = 2_000_000_000
+SMALL_TILE = 64
 
 
-def _frames(rng, F, n, dtype=np.uint16, hot=200):
-    """Poisson(3) frames with `hot` pixels per frame at the dtype's max."""
+def _frames(rng, F, n, dtype=np.uint16, hot=200, hot_value=None):
+    """Poisson(3) frames with `hot` pixels per frame at `hot_value` (the
+    dtype's max by default)."""
     fr = rng.poisson(3.0, (F, n)).astype(dtype)
     if hot:
         rows = np.repeat(np.arange(F), hot)
-        fr[rows, rng.integers(0, n, F * hot)] = np.iinfo(dtype).max
+        fr[rows, rng.integers(0, n, F * hot)] = (
+            np.iinfo(dtype).max if hot_value is None else hot_value)
     return fr
 
 
@@ -57,6 +79,25 @@ def _signed_frames(rng, F, n, dtype):
     fr = fr.astype(dtype)
     fr[0, 0] = info.min
     fr[-1, -1] = info.max
+    return fr
+
+
+def _tile_edge_frames(rng, dtype, tile):
+    """Four frames crossing `tile`-block tile edges with the tiled kernels'
+    hard cases: random data, a constant frame (1-bit headers at every
+    edge), a first tile of width 0, and the widest field at a tile's first
+    value and (signed) last value. n leaves a partial last tile and
+    block."""
+    n = tile * 12 * 3 + 101
+    info = np.iinfo(dtype)
+    if info.min < 0:
+        fr = _signed_frames(rng, 4, n, dtype)
+        fr[3, tile * 12 - 1] = info.min
+    else:
+        fr = _frames(rng, 4, n, dtype, hot=5)
+    fr[3, tile * 12] = info.min if info.min < 0 else info.max
+    fr[1] = 5
+    fr[2, : tile * 12 + 5] = 0
     return fr
 
 
@@ -96,7 +137,109 @@ def _builds_openmp(cxx: str) -> bool:
     return r.returncode == 0
 
 
+def _counters():
+    """The four kernel wrappers, whose `.launches` count kernel launches."""
+    from trpx_tpu_torch.ops import (
+        decode_batch,
+        decode_batch_tiled,
+        encode_batch,
+        encode_batch_tiled,
+    )
+
+    return {"pack": encode_batch, "unpack": decode_batch,
+            "pack_tiled": encode_batch_tiled,
+            "unpack_tiled": decode_batch_tiled}
+
+
+def _drive(stack: np.ndarray, dev) -> dict:
+    """One compress and decompress of `stack` (F, h, w) through the public
+    API with the launch counters set to 0 just before and read just after,
+    then a decompress of the native codec's (foreign) archive; raises
+    unless bytes, pixels and the foreign decode all agree."""
+    import trpx_tpu_torch
+    from trpx_tpu.format.pycodec import TrpxArchive
+    from trpx_tpu.native import codec as ncodec
+
+    F, h, w = stack.shape
+    native_arch = ncodec.encode(stack.reshape(F, -1), dimensions=(w, h))
+    counters = _counters()
+    for fn in counters.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    arch = trpx_tpu_torch.compress(stack, device=dev)
+    t_enc = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    back = trpx_tpu_torch.decompress(arch, device=dev)
+    t_dec = time.perf_counter() - t0
+    launches = {k: fn.launches for k, fn in counters.items()}
+    foreign = TrpxArchive.from_bytes(native_arch.to_bytes())
+    t0 = time.perf_counter()
+    back_foreign = trpx_tpu_torch.decompress(foreign, device=dev)
+    t_foreign = time.perf_counter() - t0
+    name = f"{F}x{h}x{w} {stack.dtype}"
+    if arch.to_bytes() != native_arch.to_bytes():
+        raise AssertionError(f"{name}: compress bytes differ from the "
+                             f"native codec's")
+    if back.shape != stack.shape or back.dtype != stack.dtype \
+            or not np.array_equal(back, stack):
+        raise AssertionError(f"{name}: decompress did not round-trip")
+    if not np.array_equal(back_foreign, stack):
+        raise AssertionError(f"{name}: foreign archive decoded to other "
+                             f"pixels")
+    return dict(arch=arch, launches=launches, t_enc=t_enc, t_dec=t_dec,
+                t_foreign=t_foreign, ratio=stack.nbytes / arch.meta.memory_size)
+
+
+def _profile_layers(stack: np.ndarray, arch, dev, reps: int = 3):
+    """Layers of the real path, from ``torch.profiler`` windows over `reps`
+    compresses of `stack` and decompresses of an indexed and of a foreign
+    (serial header walk) copy of `arch`. Returns (host, device): the mean
+    host-clock ms of each ``trpx.*`` range of ``ops.coding`` (of the
+    foreign decode only its walk), and the device ms per call of each
+    kernel and copy on the card, by short name."""
+    import trpx_tpu_torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from trpx_tpu.format.pycodec import TrpxArchive
+
+    raw = arch.to_bytes()
+    runs = {
+        "encode": lambda: trpx_tpu_torch.compress(stack, device=dev),
+        "decode": lambda: trpx_tpu_torch.decompress(TrpxArchive(
+            meta=arch.meta, payload=arch.payload,
+            frame_index=arch.frame_index), device=dev),
+        "foreign": lambda: trpx_tpu_torch.decompress(
+            TrpxArchive.from_bytes(raw), device=dev),
+    }
+    host: dict[str, float] = {}
+    device: dict[str, float] = {}
+    for run, fn in runs.items():
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                     acc_events=True) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        for e in prof.key_averages():
+            if e.key.startswith("trpx.") and e.device_type == DeviceType.CPU:
+                if run == "foreign":
+                    if e.key == "trpx.decode.walk":
+                        host["decode.walk foreign"] = e.cpu_time_total / 1e3 / reps
+                else:
+                    host[e.key[5:]] = e.cpu_time_total / 1e3 / reps
+            elif e.device_type == DeviceType.CUDA and run != "foreign" \
+                    and not e.key.startswith("trpx."):
+                # "void ns::name<T>(args)" -> "name"; copies keep their name
+                short = e.key if e.key.startswith("Mem") else e.key.replace(
+                    "(anonymous namespace)::", "").split("(")[0].split(
+                    "<")[0].split("::")[-1]
+                name = f"{run} {short}"
+                device[name] = device.get(name, 0.0) \
+                    + e.self_device_time_total / 1e3 / reps
+    return host, device
+
+
 def main() -> int:
+    t_start = time.perf_counter()
     # phase 1: the card
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false", file=sys.stderr)
@@ -113,18 +256,21 @@ def main() -> int:
         Path(__file__).resolve().parent / "trpx_tpu_torch" / "_build"
         / "native"))
     from trpx_tpu import native
-    from trpx_tpu.format.pycodec import TrpxArchive
     from trpx_tpu.native import codec as ncodec
 
-    import trpx_tpu_torch
     from trpx_tpu_torch import _build
     from trpx_tpu_torch.ops import (
+        TILE_BLOCKS,
         FrameSpec,
         decode_batch,
         decode_batch_plain,
+        decode_batch_tiled,
+        decode_batch_tiled_plain,
         decoded_dtype,
         encode_batch,
         encode_batch_plain,
+        encode_batch_tiled,
+        encode_batch_tiled_plain,
         walk_archive,
     )
     from trpx_tpu_torch.ops.coding import _pad_batch
@@ -146,12 +292,50 @@ def main() -> int:
     print(f"phase 2 build: {time.perf_counter() - t0:.2f} s -> "
           f"{so.relative_to(_build.CSRC.parent.parent)}", flush=True)
 
+    def inputs(fr):
+        """Device inputs of both kernels for frames `fr` (F, n)."""
+        spec = FrameSpec.for_dtype(fr.shape[1], fr.dtype)
+        x = torch.from_numpy(_pad_batch(fr, spec)).to(dev)
+        widths, words = walk_archive(ncodec.encode(fr), spec)
+        return dict(spec=spec, x=x, odt=decoded_dtype(spec),
+                    wd=torch.from_numpy(widths.astype(np.uint8)).to(dev),
+                    wo=torch.from_numpy(words.view(np.int32)).to(dev))
+
+    def check(name, fr, tile=None):
+        """Both kernels (tiled at `tile` blocks when given) against their
+        plain versions, and the decode against the frames; returns the
+        largest errors and the device inputs."""
+        m = inputs(fr)
+        spec, x, wo, wd, odt = m["spec"], m["x"], m["wo"], m["wd"], m["odt"]
+        if tile is None:
+            got, want = encode_batch(spec, x), encode_batch_plain(spec, x)
+            out = decode_batch(spec, wo, wd, odt)
+            ref = decode_batch_plain(spec, wo, wd, odt)
+        else:
+            got = encode_batch_tiled(spec, x, tile)
+            want = encode_batch_tiled_plain(spec, x, tile)
+            out = decode_batch_tiled(spec, wo, wd, odt, tile)
+            ref = decode_batch_tiled_plain(spec, wo, wd, odt, tile)
+        e = max(_diff(g, w) for g, w in zip(got, want))
+        d = _diff(out, ref)
+        kind = "untiled" if tile is None else f"tiled ({tile}-block tiles)"
+        if e:
+            raise AssertionError(f"{kind} pack kernel != plain on {name}: "
+                                 f"max abs err {e}")
+        if d:
+            raise AssertionError(f"{kind} unpack kernel != plain on {name}: "
+                                 f"max abs err {d}")
+        if not np.array_equal(out.cpu().numpy().astype(fr.dtype), fr):
+            raise AssertionError(f"{kind} unpack kernel lost pixels on {name}")
+        del got, want, out, ref
+        return e, d, m
+
     # phase 3: kernels against their plain versions on the card
     rng = np.random.default_rng(SEED)
     n_main = SIDE * SIDE
-    main = _frames(rng, F_MAIN, n_main)
-    cases = [
-        ("512x512 u16 x256", main),
+    main_frames = _frames(rng, F_MAIN, n_main)
+    untiled_cases = [
+        ("512x512 u16 x256", main_frames),
         ("all-zero 512x512 u16", np.zeros((1, n_main), np.uint16)),
         ("n=1000 u16", _frames(rng, 3, 1000, hot=5)),
         ("n=100 u16", _frames(rng, 3, 100, hot=2)),
@@ -161,74 +345,94 @@ def main() -> int:
         ("n=1000 i16", _signed_frames(rng, 3, 1000, np.int16)),
         ("n=1001 i32", _signed_frames(rng, 3, 1001, np.int32)),
     ]
-    err = {"pack": 0, "unpack": 0}
+    tiled_cases = [
+        (f"tile edges {np.dtype(dt).name}",
+         _tile_edge_frames(rng, dt, SMALL_TILE), SMALL_TILE)
+        for dt in (np.uint8, np.int8, np.uint16, np.int16, np.uint32,
+                   np.int32)]
+    tiled_cases.append((
+        "2048x2048 u32 x4", _frames(rng, 4, 2048 * 2048, np.uint32,
+                                    hot_value=HOT_U32), TILE_BLOCKS))
+    err = dict.fromkeys(_counters(), 0)
     main_inputs = {}
-    for name, fr in cases:
-        spec = FrameSpec.for_dtype(fr.shape[1], fr.dtype)
-        x = torch.from_numpy(_pad_batch(fr, spec)).to(dev)
-        got = encode_batch(spec, x)
-        want = encode_batch_plain(spec, x)
-        e = max(_diff(g, w) for g, w in zip(got, want))
-        if e:
-            raise AssertionError(f"pack kernel != plain on {name}: max abs "
-                                 f"err {e}")
-        arch = ncodec.encode(fr)
-        widths, words = walk_archive(arch, spec)
-        wd = torch.from_numpy(widths.astype(np.uint8)).to(dev)
-        wo = torch.from_numpy(words.view(np.int32)).to(dev)
-        odt = decoded_dtype(spec)
-        out = decode_batch(spec, wo, wd, odt)
-        ref = decode_batch_plain(spec, wo, wd, odt)
-        d = _diff(out, ref)
-        if d:
-            raise AssertionError(f"unpack kernel != plain on {name}: max abs "
-                                 f"err {d}")
-        vals = out.cpu().numpy()
-        if not np.array_equal(vals.astype(fr.dtype), fr):
-            raise AssertionError(f"unpack kernel lost pixels on {name}")
-        if name == cases[0][0]:
-            err = {"pack": e, "unpack": d}
-            main_inputs = dict(spec=spec, x=x, wo=wo, wd=wd, odt=odt)
-        del got, want, out, ref
+    for name, fr in untiled_cases:
+        e, d, m = check(name, fr)
+        err["pack"], err["unpack"] = max(err["pack"], e), max(err["unpack"], d)
+        if name == untiled_cases[0][0]:
+            main_inputs = m
+    for name, fr, tile in tiled_cases:
+        e, d, _ = check(name, fr, tile)
+        err["pack_tiled"] = max(err["pack_tiled"], e)
+        err["unpack_tiled"] = max(err["unpack_tiled"], d)
     torch.cuda.synchronize()
-    print(f"phase 3 kernels == plain versions on {len(cases)} inputs "
-          f"(exact)", flush=True)
+    print(f"phase 3 kernels == plain versions (exact): untiled on "
+          f"{len(untiled_cases)} inputs, tiled on {len(tiled_cases)} "
+          f"({len(tiled_cases) - 1} dtypes at {SMALL_TILE}-block tiles, "
+          f"2048x2048 u32 x4 at {TILE_BLOCKS})", flush=True)
 
-    # phase 4: the main path, with the launch counters
-    stack = main.reshape(F_MAIN, SIDE, SIDE)
-    native_arch = ncodec.encode(main, dimensions=(SIDE, SIDE))
-    encode_batch.launches = 0
-    decode_batch.launches = 0
-    t0 = time.perf_counter()
-    arch = trpx_tpu_torch.compress(stack, device="cuda")
-    t_enc = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    back = trpx_tpu_torch.decompress(arch, device="cuda")
-    t_dec = time.perf_counter() - t0
-    launches = {"pack": encode_batch.launches, "unpack": decode_batch.launches}
-    foreign = TrpxArchive.from_bytes(native_arch.to_bytes())
-    t0 = time.perf_counter()
-    back_foreign = trpx_tpu_torch.decompress(foreign, device="cuda")
-    t_foreign = time.perf_counter() - t0
-    if arch.to_bytes() != native_arch.to_bytes():
-        raise AssertionError("compress(device='cuda') bytes differ from the "
-                             "native codec's")
-    if back.shape != stack.shape or back.dtype != stack.dtype \
-            or not np.array_equal(back, stack):
-        raise AssertionError("decompress(device='cuda') did not round-trip")
-    if not np.array_equal(back_foreign, stack):
-        raise AssertionError("foreign archive decoded to other pixels")
-    if min(launches.values()) < 1:
-        raise AssertionError(f"main path skipped a kernel: {launches}")
-    raw = stack.nbytes
-    print(f"phase 4 main path: {F_MAIN}x{SIDE}x{SIDE} u16, "
-          f"{raw / 1e6:.1f} MB -> {arch.meta.memory_size / 1e6:.3f} MB, "
-          f"bytes == native codec, lossless, foreign decode ok, launches "
-          f"{launches}; host clock compress {t_enc * 1e3:.1f} ms, "
-          f"decompress {t_dec * 1e3:.1f} ms, foreign decompress "
-          f"{t_foreign * 1e3:.1f} ms", flush=True)
+    # phase 4: the 512x512 path, with the launch counters
+    stack = main_frames.reshape(F_MAIN, SIDE, SIDE)
+    r = _drive(stack, "cuda")
+    launches = dict(r["launches"])
+    if min(launches["pack"], launches["unpack"]) < 1 \
+            or launches["pack_tiled"] or launches["unpack_tiled"]:
+        raise AssertionError(f"512x512 path took the wrong kernels: "
+                             f"{launches}")
+    t_enc, t_dec = r["t_enc"], r["t_dec"]
+    print(f"phase 4 512x512 path: {F_MAIN}x{SIDE}x{SIDE} u16, "
+          f"{stack.nbytes / 1e6:.1f} MB -> "
+          f"{r['arch'].meta.memory_size / 1e6:.3f} MB, bytes == native "
+          f"codec, lossless, foreign decode ok, launches {r['launches']}; "
+          f"host clock compress {t_enc * 1e3:.1f} ms, decompress "
+          f"{t_dec * 1e3:.1f} ms, foreign decompress "
+          f"{r['t_foreign'] * 1e3:.1f} ms", flush=True)
+    del stack, r
 
-    # phase 5: kernel vs plain version at the main path's shape
+    # phase 5: the big-frame path
+    big_inputs = {}
+    layers = ({}, {})
+    for side, F in BIG:
+        stack = _frames(rng, F, side * side, np.uint32,
+                        hot_value=HOT_U32).reshape(F, side, side)
+        r = _drive(stack, "cuda")
+        got = r["launches"]
+        if min(got["pack_tiled"], got["unpack_tiled"]) < 1 \
+                or got["pack"] or got["unpack"]:
+            raise AssertionError(f"{side}x{side} path took the wrong "
+                                 f"kernels: {got}")
+        for k in ("pack_tiled", "unpack_tiled"):
+            launches[k] += got[k]
+        print(f"phase 5 big-frame path: {F}x{side}x{side} u32, "
+              f"{stack.nbytes / 1e6:.1f} MB -> "
+              f"{r['arch'].meta.memory_size / 1e6:.3f} MB (ratio "
+              f"{r['ratio']:.3f}), bytes == native codec, lossless, foreign "
+              f"decode ok, launches {got}; host clock compress "
+              f"{r['t_enc'] * 1e3:.1f} ms = {F / r['t_enc']:.2f} frames/s, "
+              f"decompress {r['t_dec'] * 1e3:.1f} ms = "
+              f"{F / r['t_dec']:.2f} frames/s, foreign decompress "
+              f"{r['t_foreign'] * 1e3:.1f} ms = "
+              f"{F / r['t_foreign']:.2f} frames/s", flush=True)
+        # the tiled kernels against their plain versions at the path's
+        # own shape (the launches after _drive are not counted)
+        e, d, m = check(f"{F}x{side}x{side} u32", stack.reshape(F, -1),
+                        TILE_BLOCKS)
+        err["pack_tiled"] = max(err["pack_tiled"], e)
+        err["unpack_tiled"] = max(err["unpack_tiled"], d)
+        print(f"phase 5 tiled kernels == plain versions (exact) at {F}x"
+              f"{side}x{side} u32, {TILE_BLOCKS}-block tiles", flush=True)
+        if side == BIG[0][0]:
+            layers = _profile_layers(stack, r["arch"], dev)
+        big_inputs[side] = (F, m)
+        del stack, r
+    host, device = layers
+    print(f"phase 5 layers ({BIG[0][1]}x{BIG[0][0]}x{BIG[0][0]} u32, "
+          f"{card}; torch.profiler, means of 3): host clock ms "
+          + ", ".join(f"{k} {v:.2f}" for k, v in host.items())
+          + "; device ms " + ", ".join(f"{k} {v:.3f}"
+                                       for k, v in device.items()),
+          flush=True)
+
+    # phase 6: kernel vs plain version times at each path's shapes
     m = main_inputs
     spec, x, wo, wd, odt = m["spec"], m["x"], m["wo"], m["wd"], m["odt"]
     ms = {
@@ -239,28 +443,58 @@ def main() -> int:
         "pack": _time_ms(lambda: encode_batch_plain(spec, x), 3),
         "unpack": _time_ms(lambda: decode_batch_plain(spec, wo, wd, odt), 3),
     }
-    fps = {k: F_MAIN / (v / 1e3) for k, v in ms.items()}
-    plain_fps = {k: F_MAIN / (v / 1e3) for k, v in plain_ms.items()}
-    print(f"phase 5 times ({card}), {F_MAIN} frames 512x512 u16 per call: "
-          f"pack kernel {ms['pack']} ms = {fps['pack']} frames/s, plain "
-          f"{plain_ms['pack']} ms = {plain_fps['pack']} frames/s; unpack "
-          f"kernel {ms['unpack']} ms = {fps['unpack']} frames/s, plain "
-          f"{plain_ms['unpack']} ms = {plain_fps['unpack']} frames/s; "
-          f"end to end compress {F_MAIN / t_enc} frames/s, decompress "
-          f"{F_MAIN / t_dec} frames/s", flush=True)
+    # the tiled kernels at this shape: the evidence for TILED_MAX_FRAMES
+    tiled_here = (_time_ms(lambda: encode_batch_tiled(spec, x), 20),
+                  _time_ms(lambda: decode_batch_tiled(spec, wo, wd, odt), 20))
+    print(f"phase 6 times ({card}), {F_MAIN} frames 512x512 u16 per call: "
+          f"pack kernel {ms['pack']} ms = {F_MAIN / ms['pack'] * 1e3} "
+          f"frames/s, plain {plain_ms['pack']} ms, tiled {tiled_here[0]} "
+          f"ms; unpack kernel "
+          f"{ms['unpack']} ms = {F_MAIN / ms['unpack'] * 1e3} frames/s, "
+          f"plain {plain_ms['unpack']} ms, tiled {tiled_here[1]} ms; "
+          f"end to end compress "
+          f"{F_MAIN / t_enc} frames/s, decompress {F_MAIN / t_dec} frames/s",
+          flush=True)
+    del main_inputs, m, x, wo, wd
+    for side, (F, m) in big_inputs.items():
+        spec, x, wo, wd, odt = (m["spec"], m["x"], m["wo"], m["wd"],
+                                m["odt"])
+        t = {
+            "pack_tiled": _time_ms(lambda: encode_batch_tiled(spec, x), 10),
+            "unpack_tiled": _time_ms(
+                lambda: decode_batch_tiled(spec, wo, wd, odt), 10),
+            "pack_tiled plain": _time_ms(
+                lambda: encode_batch_tiled_plain(spec, x), 2),
+            "unpack_tiled plain": _time_ms(
+                lambda: decode_batch_tiled_plain(spec, wo, wd, odt), 2),
+        }
+        if side == BIG[0][0]:
+            t["pack untiled"] = _time_ms(lambda: encode_batch(spec, x), 3)
+            t["unpack untiled"] = _time_ms(
+                lambda: decode_batch(spec, wo, wd, odt), 3)
+            for k in ("pack_tiled", "unpack_tiled"):
+                ms[k], plain_ms[k] = t[k], t[f"{k} plain"]
+        print(f"phase 6 times ({card}), {F} frames {side}x{side} u32 per "
+              f"call, {TILE_BLOCKS}-block tiles, ms: "
+              + ", ".join(f"{k} {v}" for k, v in t.items())
+              + f"; frames/s: pack {F / t['pack_tiled'] * 1e3}, unpack "
+              f"{F / t['unpack_tiled'] * 1e3}", flush=True)
+        del x, wo, wd, m
+    big_inputs.clear()
 
+    sources = {"pack": ("pack.cu", "trpx_tpu/ops/pallas_pack.py:712"),
+               "unpack": ("unpack.cu", "trpx_tpu/ops/pallas_unpack.py:626"),
+               "pack_tiled": ("pack_tiled.cu",
+                              "trpx_tpu/ops/pallas_pack.py:1013"),
+               "unpack_tiled": ("unpack_tiled.cu",
+                                "trpx_tpu/ops/pallas_unpack.py:824")}
     kernels = [
-        {"name": "pack", "route": "cuda",
-         "source": "trpx_tpu_torch/csrc/pack.cu",
-         "replaces": "trpx_tpu/ops/pallas_pack.py:712",
-         "launches": launches["pack"], "max_abs_err": err["pack"],
-         "ms": ms["pack"], "plain_ms": plain_ms["pack"]},
-        {"name": "unpack", "route": "cuda",
-         "source": "trpx_tpu_torch/csrc/unpack.cu",
-         "replaces": "trpx_tpu/ops/pallas_unpack.py:626",
-         "launches": launches["unpack"], "max_abs_err": err["unpack"],
-         "ms": ms["unpack"], "plain_ms": plain_ms["unpack"]},
-    ]
+        {"name": k, "route": "cuda",
+         "source": f"trpx_tpu_torch/csrc/{src}", "replaces": replaces,
+         "launches": launches[k], "max_abs_err": err[k], "ms": ms[k],
+         "plain_ms": plain_ms[k]}
+        for k, (src, replaces) in sources.items()]
+    print(f"total {time.perf_counter() - t_start:.1f} s", flush=True)
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -16,12 +16,17 @@ import torch
 from trpx_tpu.native import codec as ncodec
 from trpx_tpu_torch import compress, decompress
 from trpx_tpu_torch.ops import (
+    TILE_BLOCKS,
     FrameSpec,
     decode_batch,
     decode_batch_plain,
+    decode_batch_tiled,
+    decode_batch_tiled_plain,
     decoded_dtype,
     encode_batch,
     encode_batch_plain,
+    encode_batch_tiled,
+    encode_batch_tiled_plain,
     walk_archive,
 )
 from trpx_tpu_torch.ops.coding import _pad_batch
@@ -96,13 +101,92 @@ def test_signed_target_sign_extends_on_card(cuda):
 
 
 def test_main_path_round_trip(cuda):
-    fr = _frames(np.uint16, 512 * 512, seed=9, F=4).reshape(4, 512, 512)
+    """A batch of 256 512x512 u16 frames takes the untiled kernels."""
+    fr = _frames(np.uint16, 512 * 512, seed=9, F=256).reshape(256, 512, 512)
     e0, d0 = encode_batch.launches, decode_batch.launches
+    tiled = (encode_batch_tiled.launches, decode_batch_tiled.launches)
     arch = compress(fr, device=cuda)
     assert arch.to_bytes() == ncodec.encode(
-        fr.reshape(4, -1), dimensions=(512, 512)).to_bytes()
+        fr.reshape(256, -1), dimensions=(512, 512)).to_bytes()
     np.testing.assert_array_equal(decompress(arch, device=cuda), fr)
     assert encode_batch.launches > e0 and decode_batch.launches > d0
+    assert (encode_batch_tiled.launches,
+            decode_batch_tiled.launches) == tiled
+
+
+def _tiled_frames(dtype, n, seed):
+    """Frames that cross 64-block tile edges with the hard cases: a
+    constant frame (repeat headers at every edge), a first tile of width
+    0, and for signed types the widest field at a tile's first and last
+    value."""
+    fr = _frames(dtype, n, seed, F=4)
+    fr[1] = 5
+    fr[2, : 64 * 12 + 5] = 0
+    info = np.iinfo(dtype)
+    if info.min < 0:
+        fr[3, 64 * 12] = info.min
+        fr[3, 2 * 64 * 12 - 1] = info.min
+    return fr
+
+
+TILED_CASES = [(np.uint8, 64 * 12 * 3 + 100), (np.int8, 64 * 12 * 2),
+               (np.uint16, 64 * 12 * 3 + 7), (np.int16, 64 * 12 * 4 + 30),
+               (np.uint32, 64 * 12 * 3 + 100), (np.int32, 64 * 12 * 3 + 50)]
+
+
+@pytest.mark.parametrize("tile_blocks", [64, TILE_BLOCKS])
+@pytest.mark.parametrize("dtype,n", TILED_CASES)
+def test_tiled_pack_kernel_matches_plain(cuda, dtype, n, tile_blocks):
+    fr = _tiled_frames(dtype, n, seed=n)
+    spec = FrameSpec.for_dtype(n, dtype)
+    x = torch.from_numpy(_pad_batch(fr, spec)).to(cuda)
+    before = encode_batch_tiled.launches
+    got = encode_batch_tiled(spec, x, tile_blocks)
+    assert encode_batch_tiled.launches == before + 1
+    for g, w in zip(got, encode_batch_tiled_plain(spec, x, tile_blocks)):
+        assert torch.equal(g, w)
+    for g, w in zip(got, encode_batch_plain(spec, x)):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("tile_blocks", [64, TILE_BLOCKS])
+@pytest.mark.parametrize("dtype,n", TILED_CASES)
+def test_tiled_unpack_kernel_matches_plain(cuda, dtype, n, tile_blocks):
+    fr = _tiled_frames(dtype, n, seed=n + 1)
+    spec = FrameSpec.for_dtype(n, dtype)
+    widths, words = walk_archive(ncodec.encode(fr), spec)
+    wd = torch.from_numpy(widths.astype(np.uint8)).to(cuda)
+    wo = torch.from_numpy(words.view(np.int32)).to(cuda)
+    for odt in {decoded_dtype(spec), torch.int32}:
+        before = decode_batch_tiled.launches
+        got = decode_batch_tiled(spec, wo, wd, odt, tile_blocks)
+        assert decode_batch_tiled.launches == before + 1
+        want = decode_batch_tiled_plain(spec, wo, wd, odt, tile_blocks)
+        if odt == torch.uint16:
+            got, want = got.view(torch.int16), want.view(torch.int16)
+        assert torch.equal(got, want)
+    np.testing.assert_array_equal(
+        decode_batch_tiled(spec, wo, wd, decoded_dtype(spec), tile_blocks)
+        .cpu().numpy().astype(dtype), fr)
+
+
+def test_big_frame_path_round_trip(cuda):
+    """2048x2048 u32 frames take the tiled kernels and only them."""
+    rng = np.random.default_rng(2048)
+    fr = rng.poisson(3.0, (2, 2048 * 2048)).astype(np.uint32)
+    fr[np.repeat([0, 1], 200), rng.integers(0, fr.shape[1], 400)] = \
+        2_000_000_000
+    fr = fr.reshape(2, 2048, 2048)
+    counts = (encode_batch.launches, decode_batch.launches,
+              encode_batch_tiled.launches, decode_batch_tiled.launches)
+    arch = compress(fr, device=cuda)
+    assert arch.to_bytes() == ncodec.encode(
+        fr.reshape(2, -1), dimensions=(2048, 2048)).to_bytes()
+    np.testing.assert_array_equal(decompress(arch, device=cuda), fr)
+    after = (encode_batch.launches, decode_batch.launches,
+             encode_batch_tiled.launches, decode_batch_tiled.launches)
+    assert after[:2] == counts[:2]
+    assert after[2] > counts[2] and after[3] > counts[3]
 
 
 def test_kernel_rejects_non_contiguous_input(cuda):

@@ -20,127 +20,36 @@
 // which blocks land, so the stream is bit-exact.
 //
 // Layout: one CTA per frame, one block of values per thread per chunk of
-// kThreads blocks (see common.cuh). Bit offsets are int32: the wrapper's
-// FrameSpec refuses frames whose worst case reaches 2^31 bits.
-#include <type_traits>
-
+// kThreads blocks (walk_pack in common.cuh, shared with pack_tiled.cu).
+// Bit offsets are int32: the wrapper's FrameSpec refuses frames whose
+// worst case reaches 2^31 bits.
 #include "common.cuh"
 
 namespace trpx {
 namespace {
-
-// |v| as the unsigned pattern whose bit length is the block width; the
-// magnitude of INT32_MIN is 2^31.
-template <typename T>
-__device__ __forceinline__ uint32_t magnitude(T v) {
-  if constexpr (std::is_signed<T>::value) {
-    const int32_t x = v;
-    return x < 0 ? 0u - uint32_t(x) : uint32_t(x);
-  } else {
-    return uint32_t(v);
-  }
-}
-
-// The w low bits of v's two's-complement pattern (w <= 33: an int32 field
-// carries its sign in bit 32).
-template <typename T>
-__device__ __forceinline__ uint64_t field(T v, int w) {
-  const uint64_t mask = (1ull << w) - 1ull;
-  if constexpr (std::is_signed<T>::value) {
-    return uint64_t(int64_t(v)) & mask;
-  } else {
-    return uint64_t(v) & mask;
-  }
-}
-
-// Writes one block's bits, LSB first, starting at bit `start`.
-struct BitWriter {
-  uint32_t* words;
-  int word;
-  int nbits;      // valid bits in acc
-  uint64_t acc;
-  bool first;     // the first word may hold the previous block's tail
-
-  __device__ BitWriter(uint32_t* w, int start)
-      : words(w), word(start >> 5), nbits(start & 31), acc(0), first(true) {}
-
-  // Appends the n low bits of v (v < 2^n, n <= 33). nbits <= 31 on entry,
-  // so v << nbits fits in 64 bits.
-  __device__ __forceinline__ void put(uint64_t v, int n) {
-    acc |= v << nbits;
-    nbits += n;
-    while (nbits >= 32) {
-      if (first) {
-        atomicOr(words + word, uint32_t(acc));
-        first = false;
-      } else {
-        words[word] = uint32_t(acc);  // wholly inside this block
-      }
-      ++word;
-      acc >>= 32;
-      nbits -= 32;
-    }
-  }
-
-  // The last, partial word is shared with the next block.
-  __device__ __forceinline__ void finish() {
-    if (nbits) atomicOr(words + word, uint32_t(acc));
-  }
-};
 
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
 pack_kernel(const T* __restrict__ frames, int n, int stride, int block,
             int nb, int n_words, uint32_t* __restrict__ words,
             int* __restrict__ bits, int* __restrict__ maxw) {
-  constexpr bool kSigned = std::is_signed<T>::value;
   __shared__ int s_width[kThreads];
   __shared__ int s_scan[kWarps + 1];
   __shared__ int s_maxw;
-  const int tid = threadIdx.x;
   const T* x = frames + size_t(blockIdx.x) * stride;
   uint32_t* out = words + size_t(blockIdx.x) * n_words;
-  if (tid == 0) s_maxw = 0;
+  if (threadIdx.x == 0) s_maxw = 0;
   __syncthreads();
 
-  int carry_bits = 0;  // bits of all earlier chunks
-  int carry_w = 0;     // width of the previous chunk's last block
   int my_max = 0;
-  for (int base = 0; base < nb; base += kThreads) {
-    const int b = base + tid;
-    const int lo = b * block;
-    const int count = b < nb ? min(block, n - lo) : 0;
-    uint32_t m = 0;
-    for (int j = 0; j < count; ++j) m |= magnitude(x[lo + j]);
-    const int w = m ? 32 - __clz(m) + (kSigned ? 1 : 0) : 0;
-    my_max = max(my_max, w);
-
-    s_width[tid] = w;
-    __syncthreads();
-    const int prev = tid ? s_width[tid - 1] : carry_w;
-    const int next_carry = s_width[kThreads - 1];
-    const int hb = header_bits(w, prev);
-    int total;
-    // the scan's barriers also order these reads of s_width before the
-    // next chunk overwrites it
-    const int start =
-        carry_bits + cta_exclusive_scan(count ? hb + w * count : 0, s_scan,
-                                        total);
-    if (count) {
-      BitWriter bw(out, start);
-      bw.put(header_value(w, prev), hb);
-      if (w) {
-        for (int j = 0; j < count; ++j) bw.put(field(x[lo + j], w), w);
-      }
-      bw.finish();
-    }
-    carry_bits += total;
-    carry_w = next_carry;
-  }
+  const int total = walk_pack<true>(
+      x, n, block, 0, nb, 0, 0,
+      [x](int, int lo, int count) { return block_width(x, lo, count); },
+      nullptr, out, s_width, s_scan, my_max);
   atomicMax(&s_maxw, my_max);
   __syncthreads();
-  if (tid == 0) {
-    bits[blockIdx.x] = carry_bits;
+  if (threadIdx.x == 0) {
+    bits[blockIdx.x] = total;
     maxw[blockIdx.x] = s_maxw;
   }
 }

@@ -20,27 +20,14 @@
 // reads fall on neighbouring addresses that L1 serves.
 //
 // Layout: one CTA per frame; per chunk of kThreads blocks, one block per
-// thread for the scan, then one value per thread for the extraction (see
-// common.cuh). Word reads are clamped to the frame's row, so inconsistent
-// tables cannot read outside it.
+// thread for the scan, then one value per thread for the extraction
+// (walk_unpack in common.cuh, shared with unpack_tiled.cu). Word reads are
+// clamped to the frame's row, so inconsistent tables cannot read outside
+// it.
 #include "common.cuh"
 
 namespace trpx {
 namespace {
-
-template <typename OutT, bool kSigned>
-__device__ __forceinline__ OutT extract(const uint32_t* __restrict__ row,
-                                        int W, int off, int w) {
-  const int idx = min(max(off >> 5, 0), W - 2);
-  const uint64_t win = uint64_t(row[idx]) | (uint64_t(row[idx + 1]) << 32);
-  uint32_t u = uint32_t(win >> (off & 31));
-  if (w < 32) {
-    const uint32_t mask = (1u << w) - 1u;
-    u &= mask;
-    if (kSigned && w > 0 && ((u >> (w - 1)) & 1u)) u |= ~mask;
-  }
-  return static_cast<OutT>(u);
-}
 
 template <typename OutT, bool kSigned>
 __global__ void __launch_bounds__(kThreads)
@@ -50,42 +37,10 @@ unpack_kernel(const uint32_t* __restrict__ words,
   __shared__ int s_width[kThreads];
   __shared__ int s_off[kThreads];
   __shared__ int s_scan[kWarps + 1];
-  const int tid = threadIdx.x;
-  const uint32_t* row = words + size_t(blockIdx.x) * W;
-  const uint8_t* wd = widths + size_t(blockIdx.x) * nb;
-  OutT* o = out + size_t(blockIdx.x) * n;
-
-  int carry_bits = 0;  // bits of all earlier chunks
-  int carry_w = 0;     // width of the previous chunk's last block
-  for (int base = 0; base < nb; base += kThreads) {
-    const int b = base + tid;
-    const int count = b < nb ? min(block, n - b * block) : 0;
-    const int w = count ? int(wd[b]) : 0;
-    s_width[tid] = w;
-    __syncthreads();
-    const int prev = tid ? s_width[tid - 1] : carry_w;
-    const int next_carry = s_width[kThreads - 1];
-    const int hb = header_bits(w, prev);
-    int total;
-    const int start =
-        carry_bits + cta_exclusive_scan(count ? hb + w * count : 0, s_scan,
-                                        total);
-    s_off[tid] = start + hb;  // first payload bit of block b
-    __syncthreads();
-
-    const int v0 = base * block;
-    const int nv = min(kThreads * block, n - v0);
-    for (int v = tid; v < nv; v += kThreads) {
-      const int lb = v / block;
-      const int wb = s_width[lb];
-      o[v0 + v] = extract<OutT, kSigned>(row, W,
-                                         s_off[lb] + (v - lb * block) * wb,
-                                         wb);
-    }
-    carry_bits += total;
-    carry_w = next_carry;
-    __syncthreads();  // s_width and s_off are rewritten by the next chunk
-  }
+  walk_unpack<OutT, kSigned>(words + size_t(blockIdx.x) * W, W,
+                             widths + size_t(blockIdx.x) * nb, n, block, 0,
+                             nb, 0, 0, out + size_t(blockIdx.x) * n, s_width,
+                             s_off, s_scan);
 }
 
 template <typename OutT, bool kSigned>

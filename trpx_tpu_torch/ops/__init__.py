@@ -1,12 +1,14 @@
 """Device compute path of the PyTorch port.
 
 The device is chosen by the tensors themselves: each kernel wrapper
-(``encode_batch``, ``decode_batch``) launches its CUDA kernel for CUDA
-tensors and runs its plain PyTorch version for CPU tensors. There is no
-fallback: a kernel that fails to build or launch raises.
+(``encode_batch``, ``decode_batch`` and, for big frames,
+``encode_batch_tiled``, ``decode_batch_tiled``) launches its CUDA kernel
+for CUDA tensors and runs its plain PyTorch version for CPU tensors.
+There is no fallback: a kernel that fails to build or launch raises.
 """
 
 from .coding import (  # noqa: F401
+    TILED_MAX_FRAMES,
     FrameSpec,
     assemble_archive,
     decode,
@@ -15,9 +17,18 @@ from .coding import (  # noqa: F401
     validate_tables,
     walk_archive,
 )
-from .cuda_pack import encode_batch, encode_batch_plain  # noqa: F401
+from .cuda_pack import (  # noqa: F401
+    TILE_BLOCKS,
+    encode_batch,
+    encode_batch_plain,
+    encode_batch_tiled,
+    encode_batch_tiled_plain,
+    tile_tables_plain,
+)
 from .cuda_unpack import (  # noqa: F401
     decode_batch,
     decode_batch_plain,
+    decode_batch_tiled,
+    decode_batch_tiled_plain,
     decoded_dtype,
 )

@@ -1,12 +1,23 @@
 """Device path of the PyTorch port: TRPX encode/decode of frame batches.
 
 The counterpart of ``trpx_tpu/ops/coding.py``. Encode pads a batch to the
-block grid, runs the pack kernel (``cuda_pack.encode_batch``) on the
-requested device and assembles a byte-exact ``.trpx`` archive on the host.
-Decode walks the archive's block headers on the host (the shared native
-walker, serial by nature), then runs the unpack kernel
-(``cuda_unpack.decode_batch``). Each kernel wrapper launches the CUDA
-kernel for CUDA tensors and runs its plain PyTorch version for CPU tensors.
+block grid, runs the pack kernel on the requested device and assembles a
+byte-exact ``.trpx`` archive on the host. Decode walks the archive's block
+headers on the host (the shared native walker, serial by nature), then
+runs the unpack kernel. A batch of fewer than ``TILED_MAX_FRAMES`` frames,
+each of more than one tile (``FrameSpec.tiled``), takes the tiled
+kernels (``cuda_pack.encode_batch_tiled``, ``cuda_unpack.decode_batch_tiled``),
+any other batch the one-CTA-per-frame kernels (``encode_batch``,
+``decode_batch``), where the JAX package routes by ``pallas_ok`` and
+``pallas_ok_decode``. Each kernel wrapper launches the CUDA kernel for
+CUDA tensors and runs its plain PyTorch version for CPU tensors.
+
+Each layer of ``encode`` and ``decode`` runs in a ``record_function``
+range (``trpx.encode.pad``, ``.h2d``, ``.kernel``, ``.d2h``, ``.assemble``;
+``trpx.decode.walk``, ``.h2d``, ``.kernel``, ``.d2h``, ``.narrow``), so a
+``torch.profiler`` window over ``compress``/``decompress`` times the path
+by layer. The kernel ranges time the launches only: the D2H ranges wait
+for the kernels, whose device time the profiler reports on its own.
 
 The format, the archive object and the host walker are the shared
 ``trpx_tpu.format`` and ``trpx_tpu.native`` layers, never copies of them.
@@ -20,6 +31,7 @@ from dataclasses import dataclass
 
 import numpy as np
 import torch
+from torch.profiler import record_function
 
 from trpx_tpu import native
 from trpx_tpu.format import pycodec
@@ -28,8 +40,8 @@ from trpx_tpu.format.pycodec import TrpxArchive, walk_frame
 from trpx_tpu.format.spec import DEFAULT_BLOCK, frame_nbytes
 from trpx_tpu.native import codec as ncodec
 
-from .cuda_pack import encode_batch
-from .cuda_unpack import decode_batch, decoded_dtype
+from .cuda_pack import TILE_BLOCKS, encode_batch, encode_batch_tiled
+from .cuda_unpack import decode_batch, decode_batch_tiled, decoded_dtype
 
 #: device dtypes -> (signed, widest field incl. sign bit, torch dtype)
 _DEVICE_DTYPES = {
@@ -40,6 +52,14 @@ _DEVICE_DTYPES = {
     np.dtype(np.int16): (True, 17, torch.int16),
     np.dtype(np.int32): (True, 33, torch.int32),
 }
+
+#: batches of fewer frames than this take the tiled kernels when each frame
+#: spans more than one tile: the untiled kernels run one CTA per frame and
+#: leave an H100's 132 SMs underused below this (2048x2048 u32 x 32: pack
+#: 2.06 ms untiled, 0.74 tiled), while from here on the tiled pack's
+#: second read of the pixels costs more than its balance buys (512x512
+#: u16 x 256: pack 0.250 ms untiled, 0.312 tiled; PERF.md, section 6)
+TILED_MAX_FRAMES = 192
 
 
 @dataclass(frozen=True)
@@ -71,6 +91,11 @@ class FrameSpec:
     @property
     def max_block_bits(self) -> int:
         return 12 + self.block * self.max_width
+
+    def tiled(self, frames: int) -> bool:
+        """True if a batch of `frames` such frames takes the tiled
+        kernels."""
+        return self.nb > TILE_BLOCKS and frames < TILED_MAX_FRAMES
 
     @property
     def torch_dtype(self) -> torch.dtype:
@@ -128,13 +153,22 @@ def encode(
     elif frames.ndim != 2:
         raise ValueError("frames must be 1-D, 2-D (batch) or 3-D (image stack)")
     spec = FrameSpec.for_dtype(frames.shape[1], frames.dtype, block)
-    x = torch.from_numpy(_pad_batch(frames, spec)).to(device)
-    words, bits, maxw = encode_batch(spec, x)
-    bits = bits.cpu().numpy()
-    # fetch only the words that hold some frame's bytes
-    used = -(-frame_nbytes(int(bits.max())) // 4)
-    words = words[:, :used].cpu().numpy().view(np.uint32)
-    return assemble_archive(spec, words, bits, maxw.cpu().numpy(), dimensions)
+    with record_function("trpx.encode.pad"):
+        padded = _pad_batch(frames, spec)
+    with record_function("trpx.encode.h2d"):
+        x = torch.from_numpy(padded).to(device)
+    del padded
+    with record_function("trpx.encode.kernel"):
+        words, bits, maxw = (encode_batch_tiled if spec.tiled(len(x))
+                             else encode_batch)(spec, x)
+    with record_function("trpx.encode.d2h"):
+        bits = bits.cpu().numpy()
+        # fetch only the words that hold some frame's bytes
+        used = -(-frame_nbytes(int(bits.max())) // 4)
+        words = words[:, :used].cpu().numpy().view(np.uint32)
+        maxw = maxw.cpu().numpy()
+    with record_function("trpx.encode.assemble"):
+        return assemble_archive(spec, words, bits, maxw, dimensions)
 
 
 def assemble_archive(
@@ -335,8 +369,15 @@ def decode(archive: TrpxArchive, dtype, *, device) -> np.ndarray:
         if native.available():
             return ncodec.decode(archive, dtype)
         return pycodec.decode(archive, dtype)
-    widths, words = walk_archive(archive, spec)
-    w = torch.from_numpy(widths.astype(np.uint8)).to(device)
-    x = torch.from_numpy(words.view(np.int32)).to(device)
-    out = decode_batch(spec, x, w, decoded_dtype(spec)).cpu().numpy()
-    return narrow_values(out, dtype)
+    with record_function("trpx.decode.walk"):
+        widths, words = walk_archive(archive, spec)
+    with record_function("trpx.decode.h2d"):
+        w = torch.from_numpy(widths.astype(np.uint8)).to(device)
+        x = torch.from_numpy(words.view(np.int32)).to(device)
+    with record_function("trpx.decode.kernel"):
+        out = (decode_batch_tiled if spec.tiled(len(x)) else decode_batch)(
+            spec, x, w, decoded_dtype(spec))
+    with record_function("trpx.decode.d2h"):
+        out = out.cpu().numpy()
+    with record_function("trpx.decode.narrow"):
+        return narrow_values(out, dtype)

@@ -1,11 +1,15 @@
-"""TRPX encode of a frame batch: the pack kernel's wrapper and its plain
-PyTorch version.
+"""TRPX encode of a frame batch: the pack kernels' wrappers and their
+plain PyTorch versions.
 
-``encode_batch`` launches the CUDA kernel (``csrc/pack.cu``) for a CUDA
-tensor and runs ``encode_batch_plain`` for a CPU tensor. Both return
+``encode_batch`` launches the CUDA kernel ``csrc/pack.cu`` (one CTA per
+frame) and ``encode_batch_tiled`` the kernels ``csrc/pack_tiled.cu`` (one
+CTA per frame and tile of ``tile_blocks`` blocks, for big frames) for a
+CUDA tensor; for a CPU tensor each runs its plain version
+(``encode_batch_plain``, ``encode_batch_tiled_plain``). All return
 ``(words, bits, maxw)``: ``words`` (F, n_words) int32 holding the uint32
 stream words, zero past each frame's bits; ``bits`` and ``maxw`` (F,)
-int32, each frame's total bit count and largest block width.
+int32, each frame's total bit count and largest block width. The stream
+does not depend on the tile size.
 
 The plain version computes the plan of ``trpx_tpu/ops/coding.py:plan_frame``
 (block widths, header bits and values, the exclusive prefix of block bits)
@@ -17,6 +21,8 @@ to their int32 bit patterns at the end.
 """
 
 from __future__ import annotations
+
+import operator
 
 import torch
 
@@ -46,10 +52,20 @@ def _bit_length(x: torch.Tensor) -> torch.Tensor:
     return n + x
 
 
-def header_codes(width: torch.Tensor):
-    """(bits, values) of each block header from the (F, nb) widths; the
-    repeat chain starts at width 0 in every frame (Terse.hpp:505,517-535)."""
-    prev = torch.nn.functional.pad(width[:, :-1], (1, 0))
+#: blocks per tile of the tiled kernels (csrc/pack_tiled.cu,
+#: csrc/unpack_tiled.cu): about five waves of 1,024-thread CTAs on an
+#: H100's 132 SMs for a 2048x2048 u32 batch of 32 frames (1,376 tiles) or
+#: a 4096x4096 batch of 8 (1,368)
+TILE_BLOCKS = 8192
+
+
+def header_codes(width: torch.Tensor, prev0: torch.Tensor | None = None):
+    """(bits, values) of each block header from the (..., nb) widths. The
+    repeat chain starts at ``prev0`` (...,), the width of the block before
+    the first, or at width 0 as every frame does (Terse.hpp:505,517-535)."""
+    first = (torch.zeros_like(width[..., :1]) if prev0 is None
+             else prev0[..., None])
+    prev = torch.cat([first, width[..., :-1]], dim=-1)
     repeat = width == prev
     hb = torch.where(repeat, 1,
                      torch.where(width < 7, 4,
@@ -68,11 +84,10 @@ def block_counts(spec, device) -> torch.Tensor:
     return (spec.n - first * spec.block).clamp(0, spec.block)
 
 
-def plan_batch(spec, frames: torch.Tensor) -> dict:
-    """Per-block tables of a (F, n_padded) batch, as ``plan_frame`` makes
-    them for one frame: ``width``, ``hb``, ``hv``, ``counts``, ``starts``
-    (exclusive prefix of block bits) as (F, nb) int64, ``total_bits`` (F,)
-    and ``values``, the (F, nb, B) int64 values."""
+def block_widths(spec, frames: torch.Tensor):
+    """The (F, nb, B) int64 values of a (F, n_padded) batch and the (F, nb)
+    block widths: the bit length of the OR of a block's magnitudes, plus a
+    sign bit for signed specs (Terse.hpp:553-554)."""
     F = frames.shape[0]
     x = _values64(spec, frames).reshape(F, spec.nb, spec.block)
     mag = x.abs() if spec.signed else x
@@ -81,7 +96,16 @@ def plan_batch(spec, frames: torch.Tensor) -> dict:
         setbits = setbits | mag[..., j]
     width = _bit_length(setbits)
     if spec.signed:
-        width = width + (setbits != 0)  # one sign bit (Terse.hpp:553-554)
+        width = width + (setbits != 0)
+    return x, width
+
+
+def plan_batch(spec, frames: torch.Tensor) -> dict:
+    """Per-block tables of a (F, n_padded) batch, as ``plan_frame`` makes
+    them for one frame: ``width``, ``hb``, ``hv``, ``counts``, ``starts``
+    (exclusive prefix of block bits) as (F, nb) int64, ``total_bits`` (F,)
+    and ``values``, the (F, nb, B) int64 values."""
+    x, width = block_widths(spec, frames)
     hb, hv = header_codes(width)
     counts = block_counts(spec, frames.device)
     block_bits = hb + width * counts
@@ -90,32 +114,105 @@ def plan_batch(spec, frames: torch.Tensor) -> dict:
                 starts=ends - block_bits, total_bits=ends[:, -1], values=x)
 
 
-def encode_batch_plain(spec, frames: torch.Tensor):
-    """Plain PyTorch encode of a (F, n_padded) batch on its own device;
-    the reference the pack kernel is held against."""
-    F, B = frames.shape[0], spec.block
-    p = plan_batch(spec, frames)
-    width = p["width"][..., None]
-    j = torch.arange(B, dtype=torch.int64, device=frames.device)
-    fields = torch.where(j < p["counts"][:, None],
-                         p["values"] & ((1 << width) - 1), 0)
-    offs = (p["starts"] + p["hb"])[..., None] + j * width
-    vals = torch.cat([p["hv"][..., None], fields], dim=2).reshape(F, -1)
-    offs = torch.cat([p["starts"][..., None], offs], dim=2).reshape(F, -1)
+def tile_tables_plain(spec, widths: torch.Tensor, tile_blocks: int):
+    """Per-tile tables of a frame batch cut into tiles of ``tile_blocks``
+    blocks, from its (F, nb) block widths, as int64 (F, T): ``tile_bits``,
+    each tile's bits, whose first header is coded against the block before
+    the tile as in the frame's stream (``pallas_unpack._tile_tables``);
+    ``tile_start``, their exclusive prefix, the bit offset of each tile;
+    ``prev0``, the width of block ``t * tile_blocks - 1`` (0 for t = 0)."""
+    w = widths.to(torch.int64)
+    F, Tb = w.shape[0], tile_blocks
+    T = -(-spec.nb // Tb)
+    hb, _ = header_codes(w)
+    tile_bits = _tiles(hb + w * block_counts(spec, w.device), Tb).sum(dim=2)
+    tile_start = torch.cumsum(tile_bits, dim=1) - tile_bits
+    prev0 = torch.zeros((F, T), dtype=torch.int64, device=w.device)
+    prev0[:, 1:] = w[:, Tb - 1 : (T - 1) * Tb : Tb]
+    return tile_bits, tile_start, prev0
+
+
+def _tiles(t: torch.Tensor, tile_blocks: int) -> torch.Tensor:
+    """(F, nb) -> (F, T, tile_blocks), zero past the last block."""
+    F, nb = t.shape
+    T = -(-nb // tile_blocks)
+    return torch.nn.functional.pad(t, (0, T * tile_blocks - nb)).reshape(
+        F, T, tile_blocks)
+
+
+def tiled_plan(spec, width: torch.Tensor, tile_blocks: int) -> dict:
+    """Header codes and block offsets of a batch computed tile by tile, as
+    the tiled kernels compute them: within each tile the untiled plan,
+    with the tile's first header coded against ``prev0`` and its offsets
+    shifted by ``tile_start`` (:func:`tile_tables_plain`). Returns ``hb``,
+    ``hv``, ``starts`` (F, nb) and ``tile_bits`` (F, T), all int64."""
+    w = width.to(torch.int64)
+    F, nb = w.shape
+    tile_bits, tile_start, prev0 = tile_tables_plain(spec, w, tile_blocks)
+    wt = _tiles(w, tile_blocks)
+    counts = _tiles(block_counts(spec, w.device).expand(F, nb), tile_blocks)
+    hb, hv = header_codes(wt, prev0)
+    bits = torch.where(counts > 0, hb + wt * counts, 0)
+    starts = tile_start[..., None] + torch.cumsum(bits, dim=2) - bits
+
+    def untile(t):
+        return t.reshape(F, -1)[:, :nb]
+
+    return dict(hb=untile(hb), hv=untile(hv), starts=untile(starts),
+                tile_bits=tile_bits)
+
+
+def _place(spec, values, width, hb, hv, counts, starts) -> torch.Tensor:
+    """(F, n_words) int32 stream words: each block's header and fields,
+    LSB first, at its absolute bit offset ``starts`` (all (F, nb) int64
+    but ``values`` (F, nb, B) and ``counts`` (nb,) or (F, nb))."""
+    F, B = values.shape[0], spec.block
+    width = width[..., None]
+    j = torch.arange(B, dtype=torch.int64, device=values.device)
+    fields = torch.where(j < counts[..., None], values & ((1 << width) - 1),
+                         0)
+    offs = (starts + hb)[..., None] + j * width
+    vals = torch.cat([hv[..., None], fields], dim=2).reshape(F, -1)
+    offs = torch.cat([starts[..., None], offs], dim=2).reshape(F, -1)
     # a field of <= 33 bits at phase s spans word off>>5 and the next one
     s = offs & 31
     lo = (vals & ((1 << (32 - s)) - 1)) << s
     hi = vals >> (32 - s)
     words = torch.zeros((F, spec.n_words), dtype=torch.int64,
-                        device=frames.device)
+                        device=values.device)
     words.scatter_add_(1, offs >> 5, lo)
     words.scatter_add_(1, (offs >> 5) + 1, hi)
     words = torch.where(words >= 2**31, words - 2**32, words)
-    return (words.to(torch.int32), p["total_bits"].to(torch.int32),
+    return words.to(torch.int32)
+
+
+def encode_batch_plain(spec, frames: torch.Tensor):
+    """Plain PyTorch encode of a (F, n_padded) batch on its own device;
+    the reference the pack kernel is held against."""
+    p = plan_batch(spec, frames)
+    words = _place(spec, p["values"], p["width"], p["hb"], p["hv"],
+                   p["counts"], p["starts"])
+    return (words, p["total_bits"].to(torch.int32),
             p["width"].amax(dim=1).to(torch.int32))
 
 
+def encode_batch_tiled_plain(spec, frames: torch.Tensor,
+                             tile_blocks: int = TILE_BLOCKS):
+    """Plain PyTorch encode of a (F, n_padded) batch in tiles of
+    ``tile_blocks`` blocks (:func:`tiled_plan`), on its own device; the
+    reference the tiled pack kernels are held against."""
+    x, width = block_widths(spec, frames)
+    p = tiled_plan(spec, width, tile_blocks)
+    words = _place(spec, x, width, p["hb"], p["hv"],
+                   block_counts(spec, frames.device), p["starts"])
+    return (words, p["tile_bits"].sum(dim=1).to(torch.int32),
+            width.amax(dim=1).to(torch.int32))
+
+
 def _check(spec, frames: torch.Tensor) -> None:
+    if spec.worst_bits >= 2**31:
+        # the kernels' bit offsets are int32
+        raise ValueError("frame too large for 32-bit bit offsets")
     if frames.dtype != spec.torch_dtype:
         raise TypeError(f"frames must be {spec.torch_dtype} for {spec}, "
                         f"got {frames.dtype}")
@@ -125,6 +222,15 @@ def _check(spec, frames: torch.Tensor) -> None:
                          f"{tuple(frames.shape)}")
     if not frames.is_contiguous():
         raise ValueError("frames must be contiguous")
+
+
+def check_tile_blocks(spec, tile_blocks) -> int:
+    """``tile_blocks`` as an int >= 1, capped at the frame's block count
+    (a larger tile holds the same blocks)."""
+    tile_blocks = operator.index(tile_blocks)
+    if tile_blocks < 1:
+        raise ValueError(f"tile_blocks must be >= 1, got {tile_blocks}")
+    return min(tile_blocks, spec.nb)
 
 
 def encode_batch(spec, frames: torch.Tensor):
@@ -153,3 +259,39 @@ def encode_batch(spec, frames: torch.Tensor):
 
 
 encode_batch.launches = 0
+
+
+def encode_batch_tiled(spec, frames: torch.Tensor,
+                       tile_blocks: int = TILE_BLOCKS):
+    """Encode a (F, n_padded) batch in tiles of ``tile_blocks`` blocks: the
+    CUDA kernels of ``csrc/pack_tiled.cu`` for a CUDA tensor,
+    :func:`encode_batch_tiled_plain` for a CPU tensor. Padding values must
+    be zero. Counts kernel launches in ``encode_batch_tiled.launches``."""
+    _check(spec, frames)
+    tile_blocks = check_tile_blocks(spec, tile_blocks)
+    if frames.device.type == "cpu":
+        return encode_batch_tiled_plain(spec, frames, tile_blocks)
+    if frames.device.type != "cuda":
+        raise ValueError(f"no tiled pack kernel for device {frames.device}")
+    lib = _build.load()
+    F = frames.shape[0]
+    dev = frames.device
+    T = -(-spec.nb // tile_blocks)
+    words = torch.zeros((F, spec.n_words), dtype=torch.int32, device=dev)
+    bits = torch.zeros((F,), dtype=torch.int32, device=dev)
+    maxw = torch.zeros((F,), dtype=torch.int32, device=dev)
+    # scratch, freed in stream order after the launches
+    widths = torch.empty((F, spec.nb), dtype=torch.uint8, device=dev)
+    tile_bits = torch.empty((F, T), dtype=torch.int32, device=dev)
+    rc = lib.trpx_pack_tiled(
+        frames.data_ptr(), frames.element_size(), int(spec.signed), F,
+        spec.n, spec.n_padded, spec.block, spec.n_words, tile_blocks,
+        widths.data_ptr(), tile_bits.data_ptr(), words.data_ptr(),
+        bits.data_ptr(), maxw.data_ptr(), dev.index,
+        torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(rc, "tiled pack")
+    encode_batch_tiled.launches += 1
+    return words, bits, maxw
+
+
+encode_batch_tiled.launches = 0

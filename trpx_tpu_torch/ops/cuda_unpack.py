@@ -1,8 +1,11 @@
-"""TRPX decode of a frame batch: the unpack kernel's wrapper and its plain
-PyTorch version.
+"""TRPX decode of a frame batch: the unpack kernels' wrappers and their
+plain PyTorch versions.
 
-``decode_batch`` launches the CUDA kernel (``csrc/unpack.cu``) for CUDA
-tensors and runs ``decode_batch_plain`` for CPU tensors. Inputs are the
+``decode_batch`` launches the CUDA kernel ``csrc/unpack.cu`` (one CTA per
+frame) and ``decode_batch_tiled`` the kernels ``csrc/unpack_tiled.cu``
+(one CTA per frame and tile of ``tile_blocks`` blocks, for big frames) for
+CUDA tensors; for CPU tensors each runs its plain version
+(``decode_batch_plain``, ``decode_batch_tiled_plain``). Inputs are the
 host walk's outputs: ``words`` (F, W) int32 holding each frame's uint32
 stream words (at least two words past each stream's last bit) and
 ``widths`` (F, nb) uint8. The output is flat (F, n): uint16 for unsigned
@@ -10,9 +13,10 @@ targets of at most 16 bits, else int32 (sign-extended iff the target spec
 is signed; a 33-bit field keeps its low 32 bits). The host narrows it to
 the target dtype (``coding.narrow_values``).
 
-The plain version derives each block's bits from the widths as
-``trpx_tpu/ops/pallas_unpack.py:block_bits_host`` does, takes their
-exclusive prefix, and reads every value with the two-word gather of
+The plain versions derive each block's bits from the widths as
+``trpx_tpu/ops/pallas_unpack.py:block_bits_host`` does, take their
+exclusive prefix (tile by tile, from each tile's offset, in the tiled
+version), and read every value with the two-word gather of
 ``trpx_tpu/ops/coding.py:decode_frame_device``, in int64 (PyTorch has no
 uint32 shifts).
 """
@@ -22,7 +26,13 @@ from __future__ import annotations
 import torch
 
 from .. import _build
-from .cuda_pack import block_counts, header_codes
+from .cuda_pack import (
+    TILE_BLOCKS,
+    block_counts,
+    check_tile_blocks,
+    header_codes,
+    tiled_plan,
+)
 
 
 def decoded_dtype(spec) -> torch.dtype:
@@ -32,16 +42,13 @@ def decoded_dtype(spec) -> torch.dtype:
     return torch.int32
 
 
-def decode_batch_plain(spec, words: torch.Tensor, widths: torch.Tensor,
-                       out_dtype: torch.dtype) -> torch.Tensor:
-    """Plain PyTorch decode on the inputs' device; the reference the
-    unpack kernel is held against."""
+def _extract(spec, words: torch.Tensor, w: torch.Tensor,
+             starts: torch.Tensor, hb: torch.Tensor,
+             out_dtype: torch.dtype) -> torch.Tensor:
+    """Every value's field from the (F, nb) int64 widths ``w``, block
+    offsets ``starts`` and header bits ``hb``: the flat (F, n) output."""
     F, W = words.shape
     B = spec.block
-    w = widths.to(torch.int64)
-    hb, _ = header_codes(w)
-    block_bits = hb + w * block_counts(spec, w.device)
-    starts = torch.cumsum(block_bits, dim=1) - block_bits
     w = w[..., None]
     j = torch.arange(B, dtype=torch.int64, device=w.device)
     off = ((starts + hb)[..., None] + j * w).reshape(F, -1)
@@ -65,7 +72,32 @@ def decode_batch_plain(spec, words: torch.Tensor, widths: torch.Tensor,
     return torch.where(u >= 2**31, u - 2**32, u).to(torch.int32)
 
 
+def decode_batch_plain(spec, words: torch.Tensor, widths: torch.Tensor,
+                       out_dtype: torch.dtype) -> torch.Tensor:
+    """Plain PyTorch decode on the inputs' device; the reference the
+    unpack kernel is held against."""
+    w = widths.to(torch.int64)
+    hb, _ = header_codes(w)
+    block_bits = hb + w * block_counts(spec, w.device)
+    starts = torch.cumsum(block_bits, dim=1) - block_bits
+    return _extract(spec, words, w, starts, hb, out_dtype)
+
+
+def decode_batch_tiled_plain(spec, words: torch.Tensor,
+                             widths: torch.Tensor, out_dtype: torch.dtype,
+                             tile_blocks: int = TILE_BLOCKS) -> torch.Tensor:
+    """Plain PyTorch decode in tiles of ``tile_blocks`` blocks
+    (``cuda_pack.tiled_plan``), on the inputs' device; the reference the
+    tiled unpack kernels are held against."""
+    w = widths.to(torch.int64)
+    p = tiled_plan(spec, w, tile_blocks)
+    return _extract(spec, words, w, p["starts"], p["hb"], out_dtype)
+
+
 def _check(spec, words, widths, out_dtype) -> None:
+    if spec.worst_bits >= 2**31:
+        # the kernels' bit offsets are int32
+        raise ValueError("frame too large for 32-bit bit offsets")
     if words.dtype != torch.int32 or widths.dtype != torch.uint8:
         raise TypeError("words must be int32 and widths uint8, got "
                         f"{words.dtype} and {widths.dtype}")
@@ -107,3 +139,37 @@ def decode_batch(spec, words: torch.Tensor, widths: torch.Tensor,
 
 
 decode_batch.launches = 0
+
+
+def decode_batch_tiled(spec, words: torch.Tensor, widths: torch.Tensor,
+                       out_dtype: torch.dtype,
+                       tile_blocks: int = TILE_BLOCKS) -> torch.Tensor:
+    """Decode a batch in tiles of ``tile_blocks`` blocks: the CUDA kernels
+    of ``csrc/unpack_tiled.cu`` for CUDA tensors,
+    :func:`decode_batch_tiled_plain` for CPU tensors. Counts kernel
+    launches in ``decode_batch_tiled.launches``."""
+    _check(spec, words, widths, out_dtype)
+    tile_blocks = check_tile_blocks(spec, tile_blocks)
+    if words.device.type == "cpu":
+        return decode_batch_tiled_plain(spec, words, widths, out_dtype,
+                                        tile_blocks)
+    if words.device.type != "cuda":
+        raise ValueError(f"no tiled unpack kernel for device {words.device}")
+    lib = _build.load()
+    F, W = words.shape
+    dev = words.device
+    out = torch.empty((F, spec.n), dtype=out_dtype, device=dev)
+    # scratch, freed in stream order after the launches
+    tile_bits = torch.empty((F, -(-spec.nb // tile_blocks)),
+                            dtype=torch.int32, device=dev)
+    rc = lib.trpx_unpack_tiled(
+        words.data_ptr(), widths.data_ptr(), F, W, spec.n, spec.block,
+        tile_blocks, int(spec.signed), int(out_dtype == torch.uint16),
+        tile_bits.data_ptr(), out.data_ptr(), dev.index,
+        torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(rc, "tiled unpack")
+    decode_batch_tiled.launches += 1
+    return out
+
+
+decode_batch_tiled.launches = 0
