@@ -32,7 +32,20 @@ the tiled CUDA kernels. Phases, one line each (more for phase 5):
 6. kernel and plain-version times (CUDA events): each kernel at its
    path's shapes, and the other route at the 512x512 and 2048x2048 shapes
    (the tiled kernels at 256 x 512x512 u16, the untiled ones at
-   32 x 2048x2048 u32).
+   32 x 2048x2048 u32);
+7. the stream path (``trpx_tpu_torch.runtime``), each step with the
+   launch counters set to 0 just before and read just after:
+   (a) ``StreamingEncoder`` on the card over 1,024 x 512x512 u16 in
+   256-frame chunks, ``finalize(verify=True, index=True)``, bytes equal to
+   the native codec's, and a crash-and-resume drill; (b) ``decompress``
+   of that file through ``iter_decode``, indexed and foreign, lossless;
+   (c) ``iter_decode(fetch=False)`` chunks on the card equal to the
+   frames; (d) 64 x 2048x2048 u32 through ``StreamingEncoder`` (with the
+   resume drill) and ``iter_decode`` in 32-frame chunks, on the tiled
+   kernels; (e) ``Terse`` on the card: three ``push_back``s, ``write``,
+   ``from_stream``, ``prolix`` of the first, a middle and the last frame.
+   (a), (b) and (d) print host-clock frames/s beside the synchronous path
+   over the same chunks.
 
 It then prints the card line, a JSON line of per-kernel results and, last,
 ``{"ok": true, "device": {...}}``. Any failure exits non-zero before that
@@ -60,6 +73,11 @@ SEED = 0
 BIG = ((2048, 32), (4096, 8))
 HOT_U32 = 2_000_000_000
 SMALL_TILE = 64
+#: (frames, side, chunk frames) of the stream phase: 1,024 x 512x512 u16
+#: in 256-frame chunks (untiled kernels), 64 x 2048x2048 u32 in 32-frame
+#: chunks (tiled kernels)
+STREAM_MAIN = (1024, 512, 256)
+STREAM_BIG = (64, 2048, 32)
 
 
 def _frames(rng, F, n, dtype=np.uint16, hot=200, hot_value=None):
@@ -190,6 +208,330 @@ def _drive(stack: np.ndarray, dev) -> dict:
                 t_foreign=t_foreign, ratio=stack.nbytes / arch.meta.memory_size)
 
 
+def _zero_counts() -> None:
+    for fn in _counters().values():
+        fn.launches = 0
+
+
+def _read_counts() -> dict:
+    return {k: fn.launches for k, fn in _counters().items()}
+
+
+def _stream_encode(flat, dims, chunk, dev, path, want: bytes,
+                   resume: bool = False):
+    """``StreamingEncoder`` over the (F, n) frames `flat` in `chunk`-frame
+    chunks into `path`, then ``finalize(verify=True, index=True)``; raises
+    unless the file equals `want`. With `resume`, first a crash drill:
+    two chunks, the encoder dropped without ``flush`` (the second chunk
+    in flight is lost), and a new encoder resumes from ``frames_done``.
+    Returns the host-clock seconds of the chunks (up to the last flush)
+    and of finalize."""
+    from trpx_tpu_torch.runtime import StreamingEncoder
+
+    def encoder():
+        return StreamingEncoder(path, nvalues=flat.shape[1], dtype=flat.dtype,
+                                dimensions=dims, device=dev)
+
+    start = 0
+    if resume:
+        enc = encoder()
+        enc.add_frames(flat[:chunk])
+        enc.add_frames(flat[chunk : 2 * chunk])
+        del enc
+        start = encoder().frames_done
+        if start != chunk:
+            raise AssertionError(f"resume from frame {start}, expected "
+                                 f"{chunk}")
+    t0 = time.perf_counter()
+    enc = encoder()
+    for lo in range(start, flat.shape[0], chunk):
+        enc.add_frames(flat[lo : lo + chunk])
+    enc.flush()
+    t_chunks = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    enc.finalize(verify=True, index=True)
+    t_final = time.perf_counter() - t0
+    if path.read_bytes() != want:
+        raise AssertionError(f"{path.name}: stream-encoded bytes differ "
+                             f"from the native codec's"
+                             + (" after a resume" if resume else ""))
+    return t_chunks, t_final
+
+
+def _sync_times(stack, chunk, arch, dev):
+    """Host-clock seconds of the synchronous path over the same chunks:
+    ``compress`` of each chunk, and ``ops.decode`` of each chunk's
+    sub-archive (walk included), one after the other."""
+    import trpx_tpu_torch
+    from trpx_tpu.io.trpx import subset_frames
+    from trpx_tpu_torch import ops
+
+    F = stack.shape[0]
+    t0 = time.perf_counter()
+    for lo in range(0, F, chunk):
+        trpx_tpu_torch.compress(stack[lo : lo + chunk], device=dev)
+    t_enc = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    for lo in range(0, F, chunk):
+        ops.decode(subset_frames(arch, slice(lo, min(F, lo + chunk))),
+                   stack.dtype, device=dev)
+    return t_enc, time.perf_counter() - t0
+
+
+def _stream_phase(rng, dev, card: str, workdir: Path) -> dict:
+    """Phase 7, the stream path: (a) ``StreamingEncoder`` over 1,024 x
+    512x512 u16 in 256-frame chunks, with a resume drill; (b)
+    ``decompress`` of that file, indexed and foreign, through
+    ``iter_decode``; (c) ``iter_decode(fetch=False)``; (d) 64 x
+    2048x2048 u32 through ``StreamingEncoder`` and ``iter_decode`` in
+    32-frame chunks; (e) ``Terse`` on the card. Each is driven with the
+    launch counters set to 0 just before it and read just after; returns
+    their sums."""
+    import trpx_tpu_torch
+    from trpx_tpu.format.pycodec import TrpxArchive
+    from trpx_tpu.io.trpx import read_trpx
+    from trpx_tpu.native import codec as ncodec
+    from trpx_tpu_torch.runtime import iter_decode
+
+    total = dict.fromkeys(_counters(), 0)
+
+    def expect(name, got, moved, still):
+        if min(got[k] for k in moved) < 1 or any(got[k] for k in still):
+            raise AssertionError(f"{name} took the wrong kernels: {got}")
+        for k, v in got.items():
+            total[k] += v
+
+    untiled, tiled = ("pack", "unpack"), ("pack_tiled", "unpack_tiled")
+    # (a) 512x512 u16 stream encode, 256-frame chunks
+    F, side, C = STREAM_MAIN
+    stack = _frames(rng, F, side * side).reshape(F, side, side)
+    flat = stack.reshape(F, -1)
+    want = ncodec.encode(flat, dimensions=(side, side)).to_bytes()
+    path = workdir / "main.trpx"
+    _zero_counts()
+    t_chunks, t_final = _stream_encode(flat, (side, side), C, dev, path, want)
+    got = _read_counts()
+    expect("512x512 stream encode", got, ("pack",), tiled + ("unpack",))
+    t_warm, _ = _stream_encode(flat, (side, side), C, dev,
+                               workdir / "warm.trpx", want)
+    _stream_encode(flat, (side, side), C, dev, workdir / "resume.trpx",
+                   want, resume=True)
+    arch = TrpxArchive.from_bytes(want)
+    s_enc, s_dec = _sync_times(stack, C, arch, dev)
+    print(f"phase 7a stream encode: {F}x{side}x{side} u16 "
+          f"({stack.nbytes / 1e6:.1f} MB) in {C}-frame chunks on {card}: "
+          f"bytes == native codec, resume drill ok, launches {got}; host "
+          f"clock {t_chunks * 1e3:.1f} ms = {F / t_chunks:.1f} frames/s "
+          f"(second run {t_warm * 1e3:.1f} ms = {F / t_warm:.1f} frames/s) "
+          f"+ finalize(verify, index) {t_final * 1e3:.1f} ms; synchronous "
+          f"compress of the same chunks {s_enc * 1e3:.1f} ms = "
+          f"{F / s_enc:.1f} frames/s", flush=True)
+    # (b) decompress of that file: indexed, then foreign
+    times = {}
+    for kind, src in (("indexed", lambda: read_trpx(path)),
+                      ("foreign", lambda: TrpxArchive.from_bytes(want))):
+        a = src()
+        if (getattr(a, "width_table", None) is not None) != \
+                (kind == "indexed"):
+            raise AssertionError(f"{kind} archive has the wrong tables")
+        _zero_counts()
+        t0 = time.perf_counter()
+        back = trpx_tpu_torch.decompress(a, device=dev)
+        times[kind] = time.perf_counter() - t0
+        got = _read_counts()
+        expect(f"512x512 {kind} stream decode", got, ("unpack",),
+               tiled + ("pack",))
+        if back.shape != stack.shape or not np.array_equal(back, stack):
+            raise AssertionError(f"{kind} stream decode lost pixels")
+        if a.width_table is None or len(a.frame_index) != F:
+            raise AssertionError(f"{kind} decode left no walk tables")
+        del back
+    print(f"phase 7b stream decode ({card}): decompress of {F} frames "
+          f"through iter_decode, lossless, unpack launches "
+          f"{got['unpack']}; host clock indexed "
+          f"{times['indexed'] * 1e3:.1f} ms = "
+          f"{F / times['indexed']:.1f} frames/s, foreign "
+          f"{times['foreign'] * 1e3:.1f} ms = "
+          f"{F / times['foreign']:.1f} frames/s; synchronous "
+          f"ops.decode of the same chunks (foreign) {s_dec * 1e3:.1f} ms "
+          f"= {F / s_dec:.1f} frames/s", flush=True)
+    # (c) device-resident chunks
+    _zero_counts()
+    lo = 0
+    for out, nf in iter_decode(path, np.uint16, C, device=dev, fetch=False):
+        ref = torch.from_numpy(flat[lo : lo + nf]).to(dev)
+        if out.device != ref.device or not torch.equal(
+                out[:nf].view(torch.int16), ref.view(torch.int16)):
+            raise AssertionError("iter_decode(fetch=False) chunk differs")
+        lo += nf
+    got = _read_counts()
+    expect("fetch=False stream decode", got, ("unpack",), tiled + ("pack",))
+    if lo != F:
+        raise AssertionError(f"iter_decode(fetch=False) gave {lo} frames")
+    print(f"phase 7c iter_decode(fetch=False): {F // C} CUDA chunks equal "
+          f"to the frames", flush=True)
+    layers = {f"{side}x{side} u16": _stream_layers(flat, (side, side), C,
+                                                    dev, workdir)}
+    del stack, flat, want, arch
+    # (d) 2048x2048 u32, 32-frame chunks
+    F, side, C = STREAM_BIG
+    stack = _frames(rng, F, side * side, np.uint32,
+                    hot_value=HOT_U32).reshape(F, side, side)
+    flat = stack.reshape(F, -1)
+    want = ncodec.encode(flat, dimensions=(side, side)).to_bytes()
+    path = workdir / "big.trpx"
+    _zero_counts()
+    t_chunks, t_final = _stream_encode(flat, (side, side), C, dev, path,
+                                       want, resume=True)
+    got_enc = _read_counts()
+    expect("2048x2048 stream encode", got_enc, ("pack_tiled",),
+           untiled + ("unpack_tiled",))
+    t_dec = {}
+    for kind in ("indexed", "foreign"):
+        a = read_trpx(path) if kind == "indexed" \
+            else TrpxArchive.from_bytes(want)
+        _zero_counts()
+        t0 = time.perf_counter()
+        back = _consume(iter_decode(a, np.uint32, C, device=dev), flat)
+        t_dec[kind] = time.perf_counter() - t0
+        got = _read_counts()
+        expect(f"2048x2048 {kind} stream decode", got, ("unpack_tiled",),
+               untiled + ("pack_tiled",))
+        if not np.array_equal(back, flat):
+            raise AssertionError(f"2048x2048 {kind} stream decode lost "
+                                 f"pixels")
+        del back
+    s_enc, s_dec = _sync_times(stack, C, TrpxArchive.from_bytes(want), dev)
+    print(f"phase 7d big-frame stream: {F}x{side}x{side} u32 "
+          f"({stack.nbytes / 1e6:.1f} MB) in {C}-frame chunks on {card}: "
+          f"bytes == native codec (resume drill included), lossless, "
+          f"launches encode {got_enc}, decode {got}; host clock encode "
+          f"{t_chunks * 1e3:.1f} ms = {(F - C) / t_chunks:.2f} frames/s "
+          f"(the {F - C} frames after the resume) + finalize "
+          f"{t_final * 1e3:.1f} ms, iter_decode indexed "
+          f"{t_dec['indexed'] * 1e3:.1f} ms = "
+          f"{F / t_dec['indexed']:.2f} frames/s, foreign "
+          f"{t_dec['foreign'] * 1e3:.1f} ms = "
+          f"{F / t_dec['foreign']:.2f} frames/s; synchronous compress "
+          f"{s_enc * 1e3:.1f} ms = {F / s_enc:.2f} frames/s, ops.decode "
+          f"(foreign) {s_dec * 1e3:.1f} ms = {F / s_dec:.2f} frames/s",
+          flush=True)
+    layers["2048x2048 u32"] = _stream_layers(flat, (side, side), C, dev,
+                                             workdir)
+    del stack, flat, want
+    for name, runs in layers.items():
+        print(f"phase 7 layers ({name}, {card}; torch.profiler, one warm "
+              f"run, ms per chunk): " + "; ".join(
+                  f"{run} wall {wall:.2f}, host " + ", ".join(
+                      f"{k} {v:.2f}" for k, v in host.items())
+                  + ", device " + ", ".join(
+                      f"{k} {v:.3f}" for k, v in device.items())
+                  + f", device busy {sum(device.values()):.2f}"
+                  for run, (wall, host, device) in runs.items()),
+              flush=True)
+    # (e) the Terse adapter on the card
+    fr = _frames(rng, 24, 512 * 512).reshape(24, 512, 512)
+    _zero_counts()
+    t = trpx_tpu_torch.Terse(device=dev)
+    for lo in (0, 8, 16):
+        t.push_back(fr[lo : lo + 8])
+    blob = workdir / "terse.trpx"
+    t.write(blob)
+    t2 = trpx_tpu_torch.Terse.from_stream(blob, device=dev)
+    for i in (0, 12, 23):
+        if not np.array_equal(t2.prolix(i), fr[i]):
+            raise AssertionError(f"Terse.prolix({i}) differs")
+    got = _read_counts()
+    # 512x512 frames span 3 tiles, so the batch of 24 and the single
+    # frames of prolix take the tiled kernels (FrameSpec.tiled)
+    expect("Terse", got, tiled, untiled)
+    if blob.read_bytes() != ncodec.encode(
+            fr.reshape(24, -1), dimensions=(512, 512)).to_bytes():
+        raise AssertionError("Terse.write bytes differ from the native "
+                             "codec's")
+    print(f"phase 7e Terse on the card: 3 push_backs of 8 x 512x512 u16, "
+          f"write == native codec, from_stream, prolix(0/12/23) exact, "
+          f"launches {got}", flush=True)
+    return total
+
+
+def _consume(chunks, like: np.ndarray) -> np.ndarray:
+    """Copy ``iter_decode``'s chunks into one preallocated array, as
+    ``decompress`` does, so each chunk's buffer is released in turn."""
+    from torch.profiler import record_function
+
+    out = np.empty_like(like)
+    lo = 0
+    for chunk in chunks:
+        with record_function("trpx.consumer.copy"):
+            hi = lo + chunk.shape[0]
+            torch.from_numpy(out[lo:hi]).copy_(torch.from_numpy(chunk))
+        lo = hi
+    return out
+
+
+def _short(key: str) -> str:
+    """"void ns::name<T>(args)" -> "name"; copies keep their name."""
+    if key.startswith("Mem"):
+        return key
+    return key.replace("(anonymous namespace)::", "").split("(")[0].split(
+        "<")[0].split("::")[-1]
+
+
+def _stream_layers(flat, dims, C, dev, workdir: Path) -> dict:
+    """``torch.profiler`` windows over one stream encode of `flat` (its
+    chunks and the last flush, after a run that warmed the pinned
+    buffers) and one ``iter_decode`` of the foreign bytes of its file.
+    Returns, for "encode" and "decode", (profiled wall ms, mean host ms of
+    each ``trpx.*`` range, device ms of each kernel and copy), all per
+    chunk."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from trpx_tpu.format.pycodec import TrpxArchive
+    from trpx_tpu_torch.runtime import StreamingEncoder, iter_decode
+
+    F = flat.shape[0]
+    chunks = -(-F // C)
+    path = workdir / "profiled.trpx"
+
+    def encode():
+        enc = StreamingEncoder(path, nvalues=flat.shape[1], dtype=flat.dtype,
+                               dimensions=dims, device=dev)
+        for lo in range(0, F, C):
+            enc.add_frames(flat[lo : lo + C])
+        enc.flush()
+        return enc
+
+    encode().finalize()
+    raw = path.read_bytes()
+    runs = {"encode": encode,
+            "decode": lambda: _consume(iter_decode(
+                TrpxArchive.from_bytes(raw), flat.dtype, C, device=dev),
+                flat)}
+    out = {}
+    for run, fn in runs.items():
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                     acc_events=True) as prof:
+            t0 = time.perf_counter()
+            res = fn()
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3 / chunks
+        if run == "encode":
+            res.finalize()
+        host: dict[str, float] = {}
+        device: dict[str, float] = {}
+        for e in prof.key_averages():
+            if e.key.startswith("trpx.") and e.device_type == DeviceType.CPU:
+                host[e.key[5:]] = e.cpu_time_total / 1e3 / chunks
+            elif e.device_type == DeviceType.CUDA \
+                    and not e.key.startswith("trpx."):
+                k = _short(e.key)
+                device[k] = device.get(k, 0.0) \
+                    + e.self_device_time_total / 1e3 / chunks
+        out[run] = (wall, host, device)
+    return out
+
+
 def _profile_layers(stack: np.ndarray, arch, dev, reps: int = 3):
     """Layers of the real path, from ``torch.profiler`` windows over `reps`
     compresses of `stack` and decompresses of an indexed and of a foreign
@@ -228,11 +570,7 @@ def _profile_layers(stack: np.ndarray, arch, dev, reps: int = 3):
                     host[e.key[5:]] = e.cpu_time_total / 1e3 / reps
             elif e.device_type == DeviceType.CUDA and run != "foreign" \
                     and not e.key.startswith("trpx."):
-                # "void ns::name<T>(args)" -> "name"; copies keep their name
-                short = e.key if e.key.startswith("Mem") else e.key.replace(
-                    "(anonymous namespace)::", "").split("(")[0].split(
-                    "<")[0].split("::")[-1]
-                name = f"{run} {short}"
+                name = f"{run} {_short(e.key)}"
                 device[name] = device.get(name, 0.0) \
                     + e.self_device_time_total / 1e3 / reps
     return host, device
@@ -481,6 +819,14 @@ def main() -> int:
               f"{F / t['unpack_tiled'] * 1e3}", flush=True)
         del x, wo, wd, m
     big_inputs.clear()
+
+    # phase 7: the stream path
+    work = Path(__file__).resolve().parent / "trpx_tpu_torch" / "_build"
+    work.mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=work) as d:
+        streamed = _stream_phase(rng, dev, card, Path(d))
+    for k, v in streamed.items():
+        launches[k] += v
 
     sources = {"pack": ("pack.cu", "trpx_tpu/ops/pallas_pack.py:712"),
                "unpack": ("unpack.cu", "trpx_tpu/ops/pallas_unpack.py:626"),

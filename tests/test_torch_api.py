@@ -91,16 +91,20 @@ def test_archives_cross_between_packages(tmp_path):
 
 
 def test_chunked_decode_of_more_than_256_frames(monkeypatch):
+    """More than 256 frames decode in 256-frame chunks, through the
+    pipelined ``runtime.stream.iter_decode``."""
+    from trpx_tpu_torch.runtime import stream
+
     F = tapi._DEVICE_CHUNK_FRAMES + 44
     fr = _stack((F, 30), seed=4)
     arch = TrpxArchive.from_bytes(ncodec.encode(fr).to_bytes())
     calls = []
 
-    def counting(a, dtype, *, device):
-        calls.append(a.meta.number_of_frames)
-        return tcoding.decode(a, dtype, device=device)
+    def counting(spec, words, widths, device, **kw):
+        calls.append(len(words))
+        return tcoding.decode_dispatch(spec, words, widths, device, **kw)
 
-    monkeypatch.setattr(tapi.ops, "decode", counting)
+    monkeypatch.setattr(stream, "decode_dispatch", counting)
     out = trpx_tpu_torch.decompress(arch, device="cpu")
     assert calls == [tapi._DEVICE_CHUNK_FRAMES, 44]
     np.testing.assert_array_equal(out, fr)

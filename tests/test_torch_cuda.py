@@ -189,6 +189,76 @@ def test_big_frame_path_round_trip(cuda):
     assert after[2] > counts[2] and after[3] > counts[3]
 
 
+def test_stream_encoder_on_card_equals_cpu_run(cuda, tmp_path):
+    """Chunks of 5 through two pinned staging buffers (each reused at
+    least twice) on the side stream: the same bytes as the CPU run."""
+    from trpx_tpu_torch.runtime import StreamingEncoder
+
+    fr = _frames(np.uint16, 5000, seed=31, F=23)
+    files = {}
+    for dev in ("cuda", "cpu"):
+        p = tmp_path / f"{dev}.trpx"
+        enc = StreamingEncoder(p, nvalues=5000, dtype=np.uint16, device=dev)
+        for lo in range(0, 23, 5):
+            enc.add_frames(fr[lo : lo + 5])
+        enc.finalize(verify=True, index=True)
+        files[dev] = p.read_bytes()
+    assert files["cuda"] == files["cpu"]
+    assert files["cuda"] == ncodec.encode(fr).to_bytes()
+
+
+def test_stream_staging_reuse_under_load(cuda, tmp_path):
+    """Each staging buffer is rewritten only after the copy that read it:
+    six chunks with distinct contents, written while the card is busy."""
+    from trpx_tpu_torch.runtime import StreamingEncoder
+
+    rng = np.random.default_rng(32)
+    fr = rng.poisson(3.0, (6 * 16, 512 * 512)).astype(np.uint16)
+    for k in range(6):
+        fr[k * 16 : (k + 1) * 16, :100] = 1000 * (k + 1)
+    p = tmp_path / "s.trpx"
+    enc = StreamingEncoder(p, nvalues=512 * 512, dtype=np.uint16)
+    for k in range(6):
+        enc.add_frames(fr[k * 16 : (k + 1) * 16])
+    assert enc._staging[0].is_pinned() and enc._staging[1].is_pinned()
+    enc.finalize(verify=True)
+    assert p.read_bytes() == ncodec.encode(fr).to_bytes()
+
+
+def test_iter_decode_on_card(cuda):
+    from trpx_tpu_torch.runtime import iter_decode
+
+    fr = _frames(np.uint16, 3000, seed=33, F=10)
+    arch = ncodec.encode(fr)
+    got = np.concatenate(list(iter_decode(arch, np.uint16, 4,
+                                          device=cuda)))
+    np.testing.assert_array_equal(got, fr)
+    parts = []
+    for out, nf in iter_decode(arch, np.uint16, 4, device=cuda,
+                               fetch=False):
+        assert out.is_cuda and out.shape == (nf, 3000)
+        parts.append(out[:nf].cpu().numpy())
+    np.testing.assert_array_equal(np.concatenate(parts), fr)
+
+
+def test_iter_decode_failing_launch_raises(cuda, monkeypatch):
+    """An undersized words tensor is refused, and the error leaves the
+    generator: no fallback to the plain version or the host codec."""
+    from trpx_tpu_torch.runtime import iter_decode, stream
+
+    real = stream.decode_dispatch
+
+    def undersized(spec, words, widths, device, **kw):
+        return real(spec, words[:, :1].contiguous(), widths, device, **kw)
+
+    monkeypatch.setattr(stream, "decode_dispatch", undersized)
+    arch = ncodec.encode(_frames(np.uint16, 1000, seed=34, F=6))
+    before = decode_batch.launches
+    with pytest.raises(ValueError, match="words"):
+        list(iter_decode(arch, np.uint16, 3, device=cuda))
+    assert decode_batch.launches == before
+
+
 def test_kernel_rejects_non_contiguous_input(cuda):
     spec = FrameSpec.for_dtype(100, np.uint16)
     x = torch.zeros((spec.n_padded, 2), dtype=torch.int16,

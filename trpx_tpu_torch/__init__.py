@@ -5,11 +5,15 @@ Hopper GPU. It shares the JAX package's JAX-free layers — ``format``
 (header, bit semantics, the archive object), ``native`` (the C++ host
 walker and codec) and ``io`` — and replaces its device path:
 
-* ``ops/``    — encode/decode of frame batches through hand-written CUDA
-  kernels (``csrc/pack.cu``, ``csrc/unpack.cu``), each beside its plain
-  PyTorch version, which CPU tensors run;
-* ``api``     — ``compress`` / ``decompress`` with an explicit ``device``;
-* ``_build``  — builds the kernels with ``nvcc`` at first use.
+* ``ops/``     — encode/decode of frame batches through hand-written CUDA
+  kernels (``csrc/*.cu``), each beside its plain PyTorch version, which
+  CPU tensors run;
+* ``api``      — ``compress`` / ``decompress`` with an explicit ``device``;
+* ``runtime/`` — ``StreamingEncoder`` (chunked encode with resume) and
+  ``iter_decode`` (pipelined chunked decode) on a side CUDA stream with
+  pinned staging, ``RunReport``/``StageTimer`` metrics;
+* ``terse``    — ``Terse``, the ``jpa::Terse``-shaped adapter;
+* ``_build``   — builds the kernels with ``nvcc`` at first use.
 
 Importing the package loads no CUDA code and never imports ``jax``.
 """
@@ -17,5 +21,6 @@ Importing the package loads no CUDA code and never imports ``jax``.
 __version__ = "0.1.0"
 
 from .api import compress, decompress, output_dtype  # noqa: F401
+from .terse import Terse  # noqa: F401
 
-__all__ = ["compress", "decompress", "output_dtype"]
+__all__ = ["Terse", "compress", "decompress", "output_dtype"]

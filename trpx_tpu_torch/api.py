@@ -129,13 +129,19 @@ def decompress(
         out = (ncodec.decode(archive, dtype) if native.available()
                else pycodec.decode(archive, dtype))
     elif F > _DEVICE_CHUNK_FRAMES:
-        # synchronous chunks bound the host buffers of the walk; each
-        # chunk is a valid sub-archive (frames are byte-aligned)
+        # big archives stream through the pipelined chunked decode: host
+        # buffers of O(chunk), and the header walk of chunk k+1 overlaps
+        # the device unpack of chunk k; each chunk lands in its slice of
+        # one preallocated output, by torch's copy on all host threads
+        from .runtime import stream
+
         out = np.empty((F, meta.number_of_values), dtype)
-        for lo in range(0, F, _DEVICE_CHUNK_FRAMES):
-            hi = min(F, lo + _DEVICE_CHUNK_FRAMES)
-            out[lo:hi] = ops.decode(subset_frames(archive, slice(lo, hi)),
-                                    dtype, device=dev)
+        lo = 0
+        for chunk in stream.iter_decode(archive, dtype, _DEVICE_CHUNK_FRAMES,
+                                        device=dev):
+            hi = lo + chunk.shape[0]
+            torch.from_numpy(out[lo:hi]).copy_(torch.from_numpy(chunk))
+            lo = hi
     else:
         out = ops.decode(archive, dtype, device=dev)
     if len(meta.dimensions) == 2:

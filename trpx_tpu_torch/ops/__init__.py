@@ -10,9 +10,14 @@ There is no fallback: a kernel that fails to build or launch raises.
 from .coding import (  # noqa: F401
     TILED_MAX_FRAMES,
     FrameSpec,
+    InFlight,
     assemble_archive,
     decode,
+    decode_collect,
+    decode_dispatch,
     encode,
+    encode_collect,
+    encode_dispatch,
     narrow_values,
     validate_tables,
     walk_archive,

@@ -19,6 +19,14 @@ range (``trpx.encode.pad``, ``.h2d``, ``.kernel``, ``.d2h``, ``.assemble``;
 by layer. The kernel ranges time the launches only: the D2H ranges wait
 for the kernels, whose device time the profiler reports on its own.
 
+Both are a dispatch half and a collect half (``encode_dispatch`` /
+``encode_collect``, ``decode_dispatch`` / ``decode_collect``): dispatch
+copies the inputs to the device, launches the kernel on the current
+stream and starts the copies back; collect waits for them and does the
+host work. ``encode`` and ``decode`` run one after the other; the stream
+(``runtime.stream``) dispatches chunk k on a side CUDA stream before it
+collects chunk k-1.
+
 The format, the archive object and the host walker are the shared
 ``trpx_tpu.format`` and ``trpx_tpu.native`` layers, never copies of them.
 What the JAX package sizes for TPU memory (capacity schedules, merge-tree
@@ -27,6 +35,7 @@ rows, staging widths) has no counterpart here.
 
 from __future__ import annotations
 
+import contextlib
 from dataclasses import dataclass
 
 import numpy as np
@@ -158,17 +167,83 @@ def encode(
     with record_function("trpx.encode.h2d"):
         x = torch.from_numpy(padded).to(device)
     del padded
+    words, bits, maxw = encode_collect(encode_dispatch(spec, x))
+    with record_function("trpx.encode.assemble"):
+        return assemble_archive(spec, words, bits, maxw, dimensions)
+
+
+def _host_copy(t: torch.Tensor, pin: bool) -> torch.Tensor:
+    """Start copying a device tensor to the host (into pinned memory when
+    ``pin``); a CPU tensor is returned as it is."""
+    if t.device.type == "cpu":
+        return t
+    out = torch.empty(t.shape, dtype=t.dtype, pin_memory=pin)
+    return out.copy_(t, non_blocking=True)
+
+
+def _on(stream):
+    """``torch.cuda.stream(stream)``, or nothing for the CPU (None)."""
+    return contextlib.nullcontext() if stream is None \
+        else torch.cuda.stream(stream)
+
+
+@dataclass
+class InFlight:
+    """A batch dispatched to a device and not yet collected: the kernel's
+    device output (words, or decoded values), the host copies started
+    from the outputs, and the event recorded after both on ``stream``
+    (None for CPU tensors, whose plain versions have finished when
+    dispatch returns)."""
+
+    out: torch.Tensor
+    host: tuple
+    pin: bool
+    stream: torch.cuda.Stream | None
+    done: torch.cuda.Event | None
+
+    def wait(self) -> None:
+        if self.done is not None:
+            self.done.synchronize()
+
+
+def _in_flight(out, host, pin, device) -> InFlight:
+    if device.type == "cpu":
+        return InFlight(out, host, pin, None, None)
+    stream = torch.cuda.current_stream(device)
+    done = torch.cuda.Event()
+    done.record(stream)
+    return InFlight(out, host, pin, stream, done)
+
+
+def encode_dispatch(spec: FrameSpec, x: torch.Tensor,
+                    pin: bool = False) -> InFlight:
+    """Launch the pack kernel of the padded (F, n_padded) batch ``x`` on
+    the current stream of its device (``encode_batch_tiled`` when
+    ``spec.tiled(F)``, else ``encode_batch``) and start copying the frame
+    bit counts and widths back (into pinned memory when ``pin``). Returns
+    without waiting for the device."""
     with record_function("trpx.encode.kernel"):
         words, bits, maxw = (encode_batch_tiled if spec.tiled(len(x))
                              else encode_batch)(spec, x)
     with record_function("trpx.encode.d2h"):
-        bits = bits.cpu().numpy()
-        # fetch only the words that hold some frame's bytes
+        host = (_host_copy(bits, pin), _host_copy(maxw, pin))
+        return _in_flight(words, host, pin, x.device)
+
+
+def encode_collect(p: InFlight):
+    """Wait for an :func:`encode_dispatch` and copy the words that hold
+    some frame's bytes to the host: (words (F, W) uint32, bits, maxw)
+    numpy arrays. The words' copy runs on the dispatch's stream, which
+    owns them."""
+    with record_function("trpx.encode.d2h"):
+        p.wait()
+        bits, maxw = (t.numpy() for t in p.host)
         used = -(-frame_nbytes(int(bits.max())) // 4)
-        words = words[:, :used].cpu().numpy().view(np.uint32)
-        maxw = maxw.cpu().numpy()
-    with record_function("trpx.encode.assemble"):
-        return assemble_archive(spec, words, bits, maxw, dimensions)
+        with _on(p.stream):
+            words = _host_copy(p.out[:, :used], p.pin)
+            if p.stream is not None:
+                p.stream.synchronize()
+        return words.numpy().view(np.uint32), bits, maxw
 
 
 def assemble_archive(
@@ -371,13 +446,40 @@ def decode(archive: TrpxArchive, dtype, *, device) -> np.ndarray:
         return pycodec.decode(archive, dtype)
     with record_function("trpx.decode.walk"):
         widths, words = walk_archive(archive, spec)
+        widths = widths.astype(np.uint8)
+    p = decode_dispatch(spec, torch.from_numpy(words.view(np.int32)),
+                        torch.from_numpy(widths), torch.device(device))
+    return decode_collect(p, dtype)
+
+
+def decode_dispatch(spec: FrameSpec, words: torch.Tensor,
+                    widths: torch.Tensor, device: torch.device,
+                    fetch: bool = True, pin: bool = False) -> InFlight:
+    """Copy host ``words`` (F, W) int32 and ``widths`` (F, nb) uint8 to
+    ``device`` and launch the unpack kernel there on the current stream
+    (``decode_batch_tiled`` when ``spec.tiled(F)``, else
+    ``decode_batch``); with ``fetch``, start copying the (F, n) output
+    back (into pinned memory when ``pin``). Returns without waiting for
+    the device. From pinned host tensors the input copies are
+    asynchronous too."""
     with record_function("trpx.decode.h2d"):
-        w = torch.from_numpy(widths.astype(np.uint8)).to(device)
-        x = torch.from_numpy(words.view(np.int32)).to(device)
+        x = words.to(device, non_blocking=True)
+        w = widths.to(device, non_blocking=True)
     with record_function("trpx.decode.kernel"):
         out = (decode_batch_tiled if spec.tiled(len(x)) else decode_batch)(
             spec, x, w, decoded_dtype(spec))
     with record_function("trpx.decode.d2h"):
-        out = out.cpu().numpy()
+        host = (_host_copy(out, pin),) if fetch else ()
+        return _in_flight(out, host, pin, device)
+
+
+def decode_collect(p: InFlight, dtype) -> np.ndarray:
+    """Wait for a :func:`decode_dispatch` with ``fetch`` and narrow its
+    output on the host: (F, n) of ``dtype``. The result may share memory
+    with the dispatch's host buffer, which nothing else reuses while the
+    result lives."""
+    with record_function("trpx.decode.d2h"):
+        p.wait()
+        out = p.host[0].numpy()
     with record_function("trpx.decode.narrow"):
         return narrow_values(out, dtype)

@@ -1,0 +1,153 @@
+"""Structured per-run metrics: the counterpart of
+``trpx_tpu/runtime/metrics.py``.
+
+``StageTimer`` and ``RunReport`` behave as the JAX package's do, so a
+report reads the same from either package: frames/s, GB/s of raw data
+against the card's HBM peak, compression ratio and scaling efficiency.
+``HBM_GBS`` keeps the TPU rows and adds the card this port runs on, keyed
+by ``torch.cuda.get_device_name()``. ``profiler_trace`` is a
+``torch.profiler`` window in place of ``jax.profiler``.
+"""
+
+from __future__ import annotations
+
+import json
+import time
+from contextlib import contextmanager
+from dataclasses import dataclass, field
+
+#: HBM peak bandwidth per device, GB/s (public figures)
+HBM_GBS = {
+    "TPU v5 lite": 819.0,   # v5e
+    "TPU v5p": 2765.0,
+    "TPU v4": 1228.0,
+    "TPU v6 lite": 1640.0,  # v6e / Trillium
+    "NVIDIA H100 80GB HBM3": 3350.0,  # H100 SXM
+}
+
+
+class StageTimer:
+    """Accumulates wall time per named pipeline stage."""
+
+    def __init__(self) -> None:
+        self.seconds: dict[str, float] = {}
+
+    @contextmanager
+    def stage(self, name: str):
+        t0 = time.perf_counter()
+        try:
+            yield
+        finally:
+            self.seconds[name] = (
+                self.seconds.get(name, 0.0) + time.perf_counter() - t0
+            )
+
+    def total(self) -> float:
+        return sum(self.seconds.values())
+
+
+@dataclass
+class RunReport:
+    """One encode/decode run's metrics, JSON-serializable."""
+
+    operation: str                      # "encode" | "decode"
+    frames: int = 0
+    raw_bytes: int = 0
+    compressed_bytes: int = 0
+    device_kind: str = ""
+    n_devices: int = 1
+    n_hosts: int = 1
+    stage_seconds: dict = field(default_factory=dict)
+
+    @property
+    def wall_seconds(self) -> float:
+        return sum(self.stage_seconds.values())
+
+    @property
+    def frames_per_second(self) -> float:
+        t = self.wall_seconds
+        return self.frames / t if t else 0.0
+
+    @property
+    def gb_per_second(self) -> float:
+        t = self.wall_seconds
+        return self.raw_bytes / t / 1e9 if t else 0.0
+
+    @property
+    def compression_ratio(self) -> float:
+        return (
+            self.compressed_bytes / self.raw_bytes if self.raw_bytes else 0.0
+        )
+
+    @property
+    def hbm_sol_fraction(self) -> float | None:
+        sol = HBM_GBS.get(self.device_kind)
+        if not sol or not self.n_devices:
+            return None
+        return self.gb_per_second / (sol * self.n_devices)
+
+    def scaling_efficiency(self, single_device_fps: float) -> float:
+        """fps / (N * single-device fps)."""
+        denom = single_device_fps * self.n_devices
+        return self.frames_per_second / denom if denom else 0.0
+
+    def to_dict(self) -> dict:
+        d = {
+            "operation": self.operation,
+            "frames": self.frames,
+            "raw_bytes": self.raw_bytes,
+            "compressed_bytes": self.compressed_bytes,
+            "compression_ratio": round(self.compression_ratio, 4),
+            "frames_per_second": round(self.frames_per_second, 1),
+            "gb_per_second": round(self.gb_per_second, 3),
+            "device_kind": self.device_kind,
+            "n_devices": self.n_devices,
+            "n_hosts": self.n_hosts,
+            "stage_seconds": {
+                k: round(v, 6) for k, v in self.stage_seconds.items()
+            },
+        }
+        sol = self.hbm_sol_fraction
+        if sol is not None:
+            d["hbm_sol_fraction"] = round(sol, 4)
+        return d
+
+    def to_json(self) -> str:
+        return json.dumps(self.to_dict())
+
+    def summary(self) -> str:
+        parts = [
+            f"{self.operation}: {self.frames} frames in "
+            f"{self.wall_seconds:.3f}s = {self.frames_per_second:,.0f} "
+            f"frames/s ({self.gb_per_second:.2f} GB/s raw)",
+            f"compression {self.compression_ratio:.3f}",
+        ]
+        sol = self.hbm_sol_fraction
+        if sol is not None:
+            parts.append(f"{100 * sol:.1f}% of HBM SoL")
+        stages = ", ".join(
+            f"{k} {1e3 * v:.1f}ms" for k, v in self.stage_seconds.items()
+        )
+        return "; ".join(parts) + (f" [{stages}]" if stages else "")
+
+
+@contextmanager
+def profiler_trace(log_dir: str | None):
+    """Optional ``torch.profiler`` window around a region: host ranges and,
+    with a card, CUDA kernels and copies. Writes ``trace.json`` (Chrome
+    trace format) into ``log_dir``."""
+    if not log_dir:
+        yield
+        return
+    from pathlib import Path
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    activities = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(ProfilerActivity.CUDA)
+    with profile(activities=activities) as prof:
+        yield
+    Path(log_dir).mkdir(parents=True, exist_ok=True)
+    prof.export_chrome_trace(str(Path(log_dir) / "trace.json"))
