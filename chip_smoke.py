@@ -2,37 +2,50 @@
 
     python3 chip_smoke.py
 
-Drives the port's two paths through ``trpx_tpu_torch.compress`` ->
-``.trpx`` -> ``trpx_tpu_torch.decompress``: 256 seeded 512x512 uint16
-diffraction-like frames (Poisson(3) with hot pixels at 65535) through the
-one-CTA-per-frame CUDA pack and unpack kernels, and big frames, 32 of
-2048x2048 and 8 of 4096x4096 uint32 (Poisson(3) with 200 hot pixels per
-frame at 2,000,000,000, the 2K/4K u32 batches of ``bench.py``), through
-the tiled CUDA kernels. Phases, one line each (more for phase 5):
+Drives the port's paths through ``trpx_tpu_torch.compress`` -> ``.trpx``
+-> ``trpx_tpu_torch.decompress``, with ``device`` at its default (the
+card): 256 seeded 512x512 uint16 diffraction-like frames (Poisson(3) with
+hot pixels at 65535) through the one-pass CUDA pack and unpack kernels,
+and big frames, 32 of 2048x2048 and 8 of 4096x4096 uint32 (Poisson(3)
+with 200 hot pixels per frame at 2,000,000,000, the 2K/4K u32 batches of
+``bench.py``), through the one-pass pack and, for the 8 frames, the tiled
+unpack; 4 frames of 2048x2048 int32 in blocks of 1,024 values through the
+tiled pack and the one-pass unpack. Phases, one line each (more for
+phases 5 and 6):
 
 1. the card (``nvidia-smi`` name and power limit), torch and CUDA versions;
 2. the kernels' build from ``trpx_tpu_torch/csrc`` (seconds);
 3. each kernel against its plain PyTorch version on the card, exactly
-   (lossless integer codec: tolerance 0): the untiled kernels at the
-   512x512 path's shape, on an all-zero frame, partial blocks and every
-   other device dtype; the tiled kernels at 64-block tiles on every device
-   dtype (partial last tile and block, a constant frame, a zero first
-   tile, the widest field at a tile's first and last value) and at the
-   default tile size on 4 frames of 2048x2048 u32;
+   (lossless integer codec: tolerance 0; the one-pass pack on the words
+   each frame defines, ``cuda_pack.defined_words``): the one-pass kernels
+   at the 512x512 path's shape, on an all-zero frame, partial blocks,
+   every other device dtype, every dtype at its worst case (all values at
+   the dtype's extreme) and frames whose tile edges fall on a width change
+   and on a repeated width; the tiled kernels at 64-block tiles on every
+   device dtype (partial last tile and block, a constant frame, a zero
+   first tile, the widest field at a tile's first and last value) and at
+   the default tile size on 4 frames of 2048x2048 u32;
 4. the 512x512 path: archive bytes equal the native host codec's, pixels
    round-trip exactly, a natively encoded ("foreign") archive decodes to
-   the same pixels; the untiled kernels' launch counters moved and the
+   the same pixels; the one-pass kernels' launch counters moved and the
    tiled ones did not;
-5. the big-frame path, the same checks with the tiled kernels' counters
-   moving and the untiled ones not, then the tiled kernels against their
-   plain versions at each of its shapes, exactly, and a breakdown of
-   compress and decompress of 32 x 2048x2048 by layer from
+5. the big-frame paths, the same checks with the counters of each path's
+   route (``FrameSpec.tiled``, ``FrameSpec.tiled_pack``) moving and the
+   others not, and all four kernels against their plain versions at each
+   big shape, exactly; the wide-block path likewise, with the tiled pack
+   and both unpacks against their plain versions at its shape; a
+   breakdown of compress and decompress of 32 x 2048x2048 by layer from
    ``torch.profiler`` (the ``trpx.*`` ranges of ``ops.coding``, and the
    device time of each kernel and copy);
-6. kernel and plain-version times (CUDA events): each kernel at its
-   path's shapes, and the other route at the 512x512 and 2048x2048 shapes
-   (the tiled kernels at 256 x 512x512 u16, the untiled ones at
-   32 x 2048x2048 u32);
+6. each kernel's times at the shape of a path that runs it (the one-pass
+   kernels at 256 x 512x512 u16, the tiled pack on the wide-block path,
+   the tiled unpack at 8 x 4096x4096 u32): device time per call
+   (``runtime.metrics.device_ms``: calls queued behind a sleeping kernel,
+   its fills included), the CUDA-event time of a loop of calls and its
+   plain version's time, beside its bound (the bytes it
+   must move over 3.35 TB/s); then the other routes at the 512x512 and
+   big shapes (32 x 2048x2048 u32 was the tiled kernels' route before
+   the one-pass kernels took it);
 7. the stream path (``trpx_tpu_torch.runtime``), each step with the
    launch counters set to 0 just before and read just after:
    (a) ``StreamingEncoder`` on the card over 1,024 x 512x512 u16 in
@@ -41,15 +54,18 @@ the tiled CUDA kernels. Phases, one line each (more for phase 5):
    of that file through ``iter_decode``, indexed and foreign, lossless;
    (c) ``iter_decode(fetch=False)`` chunks on the card equal to the
    frames; (d) 64 x 2048x2048 u32 through ``StreamingEncoder`` (with the
-   resume drill) and ``iter_decode`` in 32-frame chunks, on the tiled
+   resume drill) and ``iter_decode`` in 32-frame chunks, on the one-pass
    kernels; (e) ``Terse`` on the card: three ``push_back``s, ``write``,
-   ``from_stream``, ``prolix`` of the first, a middle and the last frame.
+   ``from_stream``, ``prolix`` of the first, a middle and the last frame
+   (the one-pass kernels).
    (a), (b) and (d) print host-clock frames/s beside the synchronous path
    over the same chunks.
 
 It then prints the card line, a JSON line of per-kernel results and, last,
 ``{"ok": true, "device": {...}}``. Any failure exits non-zero before that
-line; so does a machine without CUDA. Imports nothing of JAX.
+line; so does a machine without CUDA. Imports nothing of JAX or of the JAX
+package: the byte oracle is the port's own native host codec
+(``trpx_tpu_torch.native``), independent of the CUDA kernels.
 """
 
 from __future__ import annotations
@@ -72,12 +88,18 @@ SEED = 0
 #: (side, frames) of the big-frame path: bench.py's 2K and 4K u32 batches
 BIG = ((2048, 32), (4096, 8))
 HOT_U32 = 2_000_000_000
+#: values per block of the wide-block path (4 x 2048x2048 int32): too many
+#: for a tile of the one-pass pack, so it takes the tiled pack
+WIDE_BLOCK = 1024
 SMALL_TILE = 64
 #: (frames, side, chunk frames) of the stream phase: 1,024 x 512x512 u16
-#: in 256-frame chunks (untiled kernels), 64 x 2048x2048 u32 in 32-frame
-#: chunks (tiled kernels)
+#: in 256-frame chunks, 64 x 2048x2048 u32 in 32-frame chunks (both on the
+#: one-pass kernels)
 STREAM_MAIN = (1024, 512, 256)
 STREAM_BIG = (64, 2048, 32)
+#: device memory rate of an H100 SXM (NVIDIA's data sheet), for the bounds
+HBM_BYTES_PER_S = 3.35e12
+DTYPES = (np.uint8, np.int8, np.uint16, np.int16, np.uint32, np.int32)
 
 
 def _frames(rng, F, n, dtype=np.uint16, hot=200, hot_value=None):
@@ -119,6 +141,37 @@ def _tile_edge_frames(rng, dtype, tile):
     return fr
 
 
+def _extreme_frames(dtype, n=40_000):
+    """The worst case of a dtype: every value at its extreme (the widest
+    stream a tile holds; 33-bit fields for int32)."""
+    info = np.iinfo(dtype)
+    return np.full((2, n), info.min if info.min < 0 else info.max, dtype)
+
+
+def _one_pass_edge_frames(rng, dtype):
+    """Two frames of three one-pass tiles (``cuda_pack.pack_geometry``)
+    whose tile edges fall on a width change (a wide block right after the
+    edge, a zero block right before it) and on a repeated width."""
+    from trpx_tpu_torch.ops import FrameSpec
+    from trpx_tpu_torch.ops.cuda_pack import pack_geometry
+
+    tb = pack_geometry(FrameSpec.for_dtype(10**6, dtype))[0]
+    edge = tb * 12
+    info = np.iinfo(dtype)
+    fr = _frames(rng, 2, 3 * edge + 7, dtype, hot=5) if info.min == 0 \
+        else _signed_frames(rng, 2, 3 * edge + 7, dtype)
+    fr[0, :] = 3
+    fr[0, edge : edge + 12] = info.max
+    fr[0, 2 * edge - 12 : 2 * edge] = 0
+    fr[1, :] = 5
+    return fr
+
+
+def _bound_ms(nbytes: int) -> float:
+    """Least time to move `nbytes` through the card's memory."""
+    return nbytes / HBM_BYTES_PER_S * 1e3
+
+
 def _diff(a: torch.Tensor, b: torch.Tensor) -> int:
     """Largest absolute difference of two integer tensors (as int64)."""
     if a.shape != b.shape:
@@ -128,19 +181,6 @@ def _diff(a: torch.Tensor, b: torch.Tensor) -> int:
     a = a.to(torch.int64)
     b = b.to(torch.int64)
     return int((a - b).abs().max().item()) if a.numel() else 0
-
-
-def _time_ms(fn, iters: int) -> float:
-    fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
 
 
 def _builds_openmp(cxx: str) -> bool:
@@ -169,30 +209,32 @@ def _counters():
             "unpack_tiled": decode_batch_tiled}
 
 
-def _drive(stack: np.ndarray, dev) -> dict:
+def _drive(stack: np.ndarray, block: int = 12) -> dict:
     """One compress and decompress of `stack` (F, h, w) through the public
-    API with the launch counters set to 0 just before and read just after,
+    API as a user calls it (``device`` left at its default, the card),
+    with the launch counters set to 0 just before and read just after,
     then a decompress of the native codec's (foreign) archive; raises
     unless bytes, pixels and the foreign decode all agree."""
     import trpx_tpu_torch
-    from trpx_tpu.format.pycodec import TrpxArchive
-    from trpx_tpu.native import codec as ncodec
+    from trpx_tpu_torch.format.pycodec import TrpxArchive
+    from trpx_tpu_torch.native import codec as ncodec
 
     F, h, w = stack.shape
-    native_arch = ncodec.encode(stack.reshape(F, -1), dimensions=(w, h))
+    native_arch = ncodec.encode(stack.reshape(F, -1), block=block,
+                                dimensions=(w, h))
     counters = _counters()
     for fn in counters.values():
         fn.launches = 0
     t0 = time.perf_counter()
-    arch = trpx_tpu_torch.compress(stack, device=dev)
+    arch = trpx_tpu_torch.compress(stack, block=block)
     t_enc = time.perf_counter() - t0
     t0 = time.perf_counter()
-    back = trpx_tpu_torch.decompress(arch, device=dev)
+    back = trpx_tpu_torch.decompress(arch)
     t_dec = time.perf_counter() - t0
     launches = {k: fn.launches for k, fn in counters.items()}
     foreign = TrpxArchive.from_bytes(native_arch.to_bytes())
     t0 = time.perf_counter()
-    back_foreign = trpx_tpu_torch.decompress(foreign, device=dev)
+    back_foreign = trpx_tpu_torch.decompress(foreign)
     t_foreign = time.perf_counter() - t0
     name = f"{F}x{h}x{w} {stack.dtype}"
     if arch.to_bytes() != native_arch.to_bytes():
@@ -263,8 +305,8 @@ def _sync_times(stack, chunk, arch, dev):
     ``compress`` of each chunk, and ``ops.decode`` of each chunk's
     sub-archive (walk included), one after the other."""
     import trpx_tpu_torch
-    from trpx_tpu.io.trpx import subset_frames
     from trpx_tpu_torch import ops
+    from trpx_tpu_torch.io.trpx import subset_frames
 
     F = stack.shape[0]
     t0 = time.perf_counter()
@@ -288,9 +330,9 @@ def _stream_phase(rng, dev, card: str, workdir: Path) -> dict:
     launch counters set to 0 just before it and read just after; returns
     their sums."""
     import trpx_tpu_torch
-    from trpx_tpu.format.pycodec import TrpxArchive
-    from trpx_tpu.io.trpx import read_trpx
-    from trpx_tpu.native import codec as ncodec
+    from trpx_tpu_torch.format.pycodec import TrpxArchive
+    from trpx_tpu_torch.io.trpx import read_trpx
+    from trpx_tpu_torch.native import codec as ncodec
     from trpx_tpu_torch.runtime import iter_decode
 
     total = dict.fromkeys(_counters(), 0)
@@ -301,7 +343,7 @@ def _stream_phase(rng, dev, card: str, workdir: Path) -> dict:
         for k, v in got.items():
             total[k] += v
 
-    untiled, tiled = ("pack", "unpack"), ("pack_tiled", "unpack_tiled")
+    tiled = ("pack_tiled", "unpack_tiled")
     # (a) 512x512 u16 stream encode, 256-frame chunks
     F, side, C = STREAM_MAIN
     stack = _frames(rng, F, side * side).reshape(F, side, side)
@@ -384,8 +426,8 @@ def _stream_phase(rng, dev, card: str, workdir: Path) -> dict:
     t_chunks, t_final = _stream_encode(flat, (side, side), C, dev, path,
                                        want, resume=True)
     got_enc = _read_counts()
-    expect("2048x2048 stream encode", got_enc, ("pack_tiled",),
-           untiled + ("unpack_tiled",))
+    expect("2048x2048 stream encode", got_enc, ("pack",),
+           tiled + ("unpack",))
     t_dec = {}
     for kind in ("indexed", "foreign"):
         a = read_trpx(path) if kind == "indexed" \
@@ -395,8 +437,8 @@ def _stream_phase(rng, dev, card: str, workdir: Path) -> dict:
         back = _consume(iter_decode(a, np.uint32, C, device=dev), flat)
         t_dec[kind] = time.perf_counter() - t0
         got = _read_counts()
-        expect(f"2048x2048 {kind} stream decode", got, ("unpack_tiled",),
-               untiled + ("pack_tiled",))
+        expect(f"2048x2048 {kind} stream decode", got, ("unpack",),
+               tiled + ("pack",))
         if not np.array_equal(back, flat):
             raise AssertionError(f"2048x2048 {kind} stream decode lost "
                                  f"pixels")
@@ -442,9 +484,10 @@ def _stream_phase(rng, dev, card: str, workdir: Path) -> dict:
         if not np.array_equal(t2.prolix(i), fr[i]):
             raise AssertionError(f"Terse.prolix({i}) differs")
     got = _read_counts()
-    # 512x512 frames span 3 tiles, so the batch of 24 and the single
-    # frames of prolix take the tiled kernels (FrameSpec.tiled)
-    expect("Terse", got, tiled, untiled)
+    # the batch of 24 takes the one-pass pack; 512x512 frames are too
+    # small for the tiled unpack (FrameSpec.tiled), so the single frames of
+    # prolix take the one-pass unpack
+    expect("Terse", got, ("pack", "unpack"), tiled)
     if blob.read_bytes() != ncodec.encode(
             fr.reshape(24, -1), dimensions=(512, 512)).to_bytes():
         raise AssertionError("Terse.write bytes differ from the native "
@@ -487,7 +530,7 @@ def _stream_layers(flat, dims, C, dev, workdir: Path) -> dict:
     chunk."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    from trpx_tpu.format.pycodec import TrpxArchive
+    from trpx_tpu_torch.format.pycodec import TrpxArchive
     from trpx_tpu_torch.runtime import StreamingEncoder, iter_decode
 
     F = flat.shape[0]
@@ -542,7 +585,7 @@ def _profile_layers(stack: np.ndarray, arch, dev, reps: int = 3):
     import trpx_tpu_torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    from trpx_tpu.format.pycodec import TrpxArchive
+    from trpx_tpu_torch.format.pycodec import TrpxArchive
 
     raw = arch.to_bytes()
     runs = {
@@ -582,7 +625,7 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false", file=sys.stderr)
         return 1
-    # the shared host codec builds with $CXX -fopenmp; a CXX that cannot
+    # the port's host codec builds with $CXX -fopenmp; a CXX that cannot
     # (missing, or without OpenMP) would leave it unbuilt and every header
     # walk in pure Python
     cxx = os.environ.get("CXX")
@@ -590,13 +633,8 @@ def main() -> int:
         print(f"CXX={cxx} cannot build OpenMP code: the host codec builds "
               f"with g++ from PATH")
         del os.environ["CXX"]
-    os.environ.setdefault("TRPX_NATIVE_CACHE", str(
-        Path(__file__).resolve().parent / "trpx_tpu_torch" / "_build"
-        / "native"))
-    from trpx_tpu import native
-    from trpx_tpu.native import codec as ncodec
-
-    from trpx_tpu_torch import _build
+    from trpx_tpu_torch import _build, native
+    from trpx_tpu_torch.native import codec as ncodec
     from trpx_tpu_torch.ops import (
         TILE_BLOCKS,
         FrameSpec,
@@ -612,6 +650,14 @@ def main() -> int:
         walk_archive,
     )
     from trpx_tpu_torch.ops.coding import _pad_batch
+    from trpx_tpu_torch.ops.cuda_pack import (
+        defined_words,
+        pack_geometry,
+        pack_scratch_ints,
+        stream_words,
+    )
+    from trpx_tpu_torch.ops.cuda_unpack import unpack_geometry
+    from trpx_tpu_torch.runtime.metrics import device_ms, event_ms
 
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -621,7 +667,8 @@ def main() -> int:
           f"{torch.version.cuda} | native host codec {native.available()}",
           flush=True)
     if not native.available():
-        raise RuntimeError("the native host codec (trpx_tpu.native) did not build")
+        raise RuntimeError("the native host codec (trpx_tpu_torch.native) "
+                           "did not build")
 
     # phase 2: build the kernels from the checkout's sources
     t0 = time.perf_counter()
@@ -630,49 +677,67 @@ def main() -> int:
     print(f"phase 2 build: {time.perf_counter() - t0:.2f} s -> "
           f"{so.relative_to(_build.CSRC.parent.parent)}", flush=True)
 
-    def inputs(fr):
-        """Device inputs of both kernels for frames `fr` (F, n)."""
-        spec = FrameSpec.for_dtype(fr.shape[1], fr.dtype)
+    def inputs(fr, block=12):
+        """Device inputs of the kernels for frames `fr` (F, n) in blocks of
+        `block` values."""
+        spec = FrameSpec.for_dtype(fr.shape[1], fr.dtype, block)
         x = torch.from_numpy(_pad_batch(fr, spec)).to(dev)
-        widths, words = walk_archive(ncodec.encode(fr), spec)
+        widths, words = walk_archive(ncodec.encode(fr, block=block), spec)
         return dict(spec=spec, x=x, odt=decoded_dtype(spec),
                     wd=torch.from_numpy(widths.astype(np.uint8)).to(dev),
                     wo=torch.from_numpy(words.view(np.int32)).to(dev))
 
-    def check(name, fr, tile=None):
-        """Both kernels (tiled at `tile` blocks when given) against their
-        plain versions, and the decode against the frames; returns the
-        largest errors and the device inputs."""
-        m = inputs(fr)
+    def calls(m, tile=TILE_BLOCKS):
+        """Each kernel's wrapper and its plain version on the inputs `m`,
+        the tiled ones at `tile`-block tiles."""
         spec, x, wo, wd, odt = m["spec"], m["x"], m["wo"], m["wd"], m["odt"]
-        if tile is None:
-            got, want = encode_batch(spec, x), encode_batch_plain(spec, x)
-            out = decode_batch(spec, wo, wd, odt)
-            ref = decode_batch_plain(spec, wo, wd, odt)
-        else:
-            got = encode_batch_tiled(spec, x, tile)
-            want = encode_batch_tiled_plain(spec, x, tile)
-            out = decode_batch_tiled(spec, wo, wd, odt, tile)
-            ref = decode_batch_tiled_plain(spec, wo, wd, odt, tile)
-        e = max(_diff(g, w) for g, w in zip(got, want))
-        d = _diff(out, ref)
-        kind = "untiled" if tile is None else f"tiled ({tile}-block tiles)"
-        if e:
-            raise AssertionError(f"{kind} pack kernel != plain on {name}: "
-                                 f"max abs err {e}")
-        if d:
-            raise AssertionError(f"{kind} unpack kernel != plain on {name}: "
-                                 f"max abs err {d}")
-        if not np.array_equal(out.cpu().numpy().astype(fr.dtype), fr):
-            raise AssertionError(f"{kind} unpack kernel lost pixels on {name}")
-        del got, want, out, ref
-        return e, d, m
+        return {
+            "pack": (lambda: encode_batch(spec, x),
+                     lambda: encode_batch_plain(spec, x)),
+            "unpack": (lambda: decode_batch(spec, wo, wd, odt),
+                       lambda: decode_batch_plain(spec, wo, wd, odt)),
+            "pack_tiled": (lambda: encode_batch_tiled(spec, x, tile),
+                           lambda: encode_batch_tiled_plain(spec, x, tile)),
+            "unpack_tiled": (
+                lambda: decode_batch_tiled(spec, wo, wd, odt, tile),
+                lambda: decode_batch_tiled_plain(spec, wo, wd, odt, tile)),
+        }
+
+    err = dict.fromkeys(_counters(), 0)
+
+    def check(name, fr, kernels, block=12, tile=TILE_BLOCKS):
+        """The named kernels (the tiled ones at `tile`-block tiles) against
+        their plain versions on frames `fr` in blocks of `block` values,
+        and each decode against the frames; keeps the largest error of
+        each kernel in `err` and returns the device inputs."""
+        m = inputs(fr, block)
+        for k in kernels:
+            fn, plain = calls(m, tile)[k]
+            got, want = fn(), plain()
+            if k.startswith("pack"):
+                if k == "pack":
+                    # the one-pass pack defines each frame's words up to
+                    # its bits
+                    got = (stream_words(got[0], got[1]),) + tuple(got[1:])
+                e = max(_diff(g, w) for g, w in zip(got, want))
+            else:
+                e = _diff(got, want)
+                if not np.array_equal(got.cpu().numpy().astype(fr.dtype), fr):
+                    raise AssertionError(f"{k} kernel lost pixels on {name}")
+            if e:
+                raise AssertionError(f"{k} kernel != plain on {name}: max "
+                                     f"abs err {e}")
+            err[k] = max(err[k], e)
+            del got, want
+        return m
 
     # phase 3: kernels against their plain versions on the card
+    one_pass = ("pack", "unpack")
+    tiled = ("pack_tiled", "unpack_tiled")
     rng = np.random.default_rng(SEED)
     n_main = SIDE * SIDE
     main_frames = _frames(rng, F_MAIN, n_main)
-    untiled_cases = [
+    one_pass_cases = [
         ("512x512 u16 x256", main_frames),
         ("all-zero 512x512 u16", np.zeros((1, n_main), np.uint16)),
         ("n=1000 u16", _frames(rng, 3, 1000, hot=5)),
@@ -683,34 +748,34 @@ def main() -> int:
         ("n=1000 i16", _signed_frames(rng, 3, 1000, np.int16)),
         ("n=1001 i32", _signed_frames(rng, 3, 1001, np.int32)),
     ]
+    one_pass_cases += [(f"worst case {np.dtype(dt).name}", _extreme_frames(dt))
+                      for dt in DTYPES]
+    one_pass_cases += [(f"tile edges {np.dtype(dt).name}",
+                       _one_pass_edge_frames(rng, dt))
+                      for dt in (np.uint16, np.int32)]
     tiled_cases = [
         (f"tile edges {np.dtype(dt).name}",
          _tile_edge_frames(rng, dt, SMALL_TILE), SMALL_TILE)
-        for dt in (np.uint8, np.int8, np.uint16, np.int16, np.uint32,
-                   np.int32)]
+        for dt in DTYPES]
     tiled_cases.append((
         "2048x2048 u32 x4", _frames(rng, 4, 2048 * 2048, np.uint32,
                                     hot_value=HOT_U32), TILE_BLOCKS))
-    err = dict.fromkeys(_counters(), 0)
     main_inputs = {}
-    for name, fr in untiled_cases:
-        e, d, m = check(name, fr)
-        err["pack"], err["unpack"] = max(err["pack"], e), max(err["unpack"], d)
-        if name == untiled_cases[0][0]:
+    for name, fr in one_pass_cases:
+        m = check(name, fr, one_pass)
+        if name == one_pass_cases[0][0]:
             main_inputs = m
     for name, fr, tile in tiled_cases:
-        e, d, _ = check(name, fr, tile)
-        err["pack_tiled"] = max(err["pack_tiled"], e)
-        err["unpack_tiled"] = max(err["unpack_tiled"], d)
+        check(name, fr, tiled, tile=tile)
     torch.cuda.synchronize()
-    print(f"phase 3 kernels == plain versions (exact): untiled on "
-          f"{len(untiled_cases)} inputs, tiled on {len(tiled_cases)} "
+    print(f"phase 3 kernels == plain versions (exact): one-pass on "
+          f"{len(one_pass_cases)} inputs, tiled on {len(tiled_cases)} "
           f"({len(tiled_cases) - 1} dtypes at {SMALL_TILE}-block tiles, "
           f"2048x2048 u32 x4 at {TILE_BLOCKS})", flush=True)
 
     # phase 4: the 512x512 path, with the launch counters
     stack = main_frames.reshape(F_MAIN, SIDE, SIDE)
-    r = _drive(stack, "cuda")
+    r = _drive(stack)
     launches = dict(r["launches"])
     if min(launches["pack"], launches["unpack"]) < 1 \
             or launches["pack_tiled"] or launches["unpack_tiled"]:
@@ -726,20 +791,23 @@ def main() -> int:
           f"{r['t_foreign'] * 1e3:.1f} ms", flush=True)
     del stack, r
 
-    # phase 5: the big-frame path
+    # phase 5: the big-frame paths. Every encode takes the one-pass pack;
+    # the 8 frames of 4096x4096 decode with the tiled unpack, the 32 of
+    # 2048x2048 with the one-pass unpack (FrameSpec.tiled)
     big_inputs = {}
     layers = ({}, {})
+    routes = {2048: ("pack", "unpack"), 4096: ("pack", "unpack_tiled")}
     for side, F in BIG:
         stack = _frames(rng, F, side * side, np.uint32,
                         hot_value=HOT_U32).reshape(F, side, side)
-        r = _drive(stack, "cuda")
+        r = _drive(stack)
         got = r["launches"]
-        if min(got["pack_tiled"], got["unpack_tiled"]) < 1 \
-                or got["pack"] or got["unpack"]:
+        if min(got[k] for k in routes[side]) < 1 or any(
+                got[k] for k in got if k not in routes[side]):
             raise AssertionError(f"{side}x{side} path took the wrong "
                                  f"kernels: {got}")
-        for k in ("pack_tiled", "unpack_tiled"):
-            launches[k] += got[k]
+        for k, v in got.items():
+            launches[k] += v
         print(f"phase 5 big-frame path: {F}x{side}x{side} u32, "
               f"{stack.nbytes / 1e6:.1f} MB -> "
               f"{r['arch'].meta.memory_size / 1e6:.3f} MB (ratio "
@@ -750,18 +818,43 @@ def main() -> int:
               f"{F / r['t_dec']:.2f} frames/s, foreign decompress "
               f"{r['t_foreign'] * 1e3:.1f} ms = "
               f"{F / r['t_foreign']:.2f} frames/s", flush=True)
-        # the tiled kernels against their plain versions at the path's
-        # own shape (the launches after _drive are not counted)
-        e, d, m = check(f"{F}x{side}x{side} u32", stack.reshape(F, -1),
-                        TILE_BLOCKS)
-        err["pack_tiled"] = max(err["pack_tiled"], e)
-        err["unpack_tiled"] = max(err["unpack_tiled"], d)
-        print(f"phase 5 tiled kernels == plain versions (exact) at {F}x"
-              f"{side}x{side} u32, {TILE_BLOCKS}-block tiles", flush=True)
+        # all four kernels against their plain versions at the path's own
+        # shape, the ones its route ran among them (the launches after
+        # _drive are not counted)
+        name = f"{F}x{side}x{side} u32"
+        big_inputs[side] = check(name, stack.reshape(F, -1), one_pass + tiled)
+        print(f"phase 5 kernels == plain versions (exact) at {name}: "
+              f"one-pass, and tiled at {TILE_BLOCKS}-block tiles", flush=True)
         if side == BIG[0][0]:
             layers = _profile_layers(stack, r["arch"], dev)
-        big_inputs[side] = (F, m)
         del stack, r
+    # blocks of 1,024 int32 values are too large for a tile of the one-pass
+    # pack, so compress takes the tiled pack (FrameSpec.tiled_pack); the
+    # one-pass unpack takes them at 32-block tiles
+    side, F = BIG[0][0], 4
+    wide = rng.integers(-300, 300, (F, side * side)).astype(np.int32)
+    wide[np.repeat(np.arange(F), 200),
+         rng.integers(0, side * side, F * 200)] = -HOT_U32  # int32 output
+    r = _drive(wide.reshape(F, side, side), block=WIDE_BLOCK)
+    got = r["launches"]
+    if min(got["pack_tiled"], got["unpack"]) < 1 or got["pack"] \
+            or got["unpack_tiled"]:
+        raise AssertionError(f"{WIDE_BLOCK}-value blocks took the wrong "
+                             f"kernels: {got}")
+    for k, v in got.items():
+        launches[k] += v
+    wide_name = f"{F}x{side}x{side} i32, block {WIDE_BLOCK}"
+    print(f"phase 5 wide-block path: {wide_name}, bytes == native codec, "
+          f"lossless, foreign decode ok, launches {got}", flush=True)
+    # the kernels its route ran (and the tiled unpack) against their plain
+    # versions at its shape
+    wide_inputs = check(wide_name, wide, ("pack_tiled", "unpack",
+                                          "unpack_tiled"), block=WIDE_BLOCK)
+    print(f"phase 5 kernels == plain versions (exact) at {wide_name}: "
+          f"pack_tiled, unpack (one-pass, "
+          f"{unpack_geometry(wide_inputs['spec'])[0]}-block tiles), "
+          f"unpack_tiled", flush=True)
+    del wide, r
     host, device = layers
     print(f"phase 5 layers ({BIG[0][1]}x{BIG[0][0]}x{BIG[0][0]} u32, "
           f"{card}; torch.profiler, means of 3): host clock ms "
@@ -770,54 +863,71 @@ def main() -> int:
                                        for k, v in device.items()),
           flush=True)
 
-    # phase 6: kernel vs plain version times at each path's shapes
-    m = main_inputs
-    spec, x, wo, wd, odt = m["spec"], m["x"], m["wo"], m["wd"], m["odt"]
-    ms = {
-        "pack": _time_ms(lambda: encode_batch(spec, x), 20),
-        "unpack": _time_ms(lambda: decode_batch(spec, wo, wd, odt), 20),
-    }
-    plain_ms = {
-        "pack": _time_ms(lambda: encode_batch_plain(spec, x), 3),
-        "unpack": _time_ms(lambda: decode_batch_plain(spec, wo, wd, odt), 3),
-    }
-    # the tiled kernels at this shape: the evidence for TILED_MAX_FRAMES
-    tiled_here = (_time_ms(lambda: encode_batch_tiled(spec, x), 20),
-                  _time_ms(lambda: decode_batch_tiled(spec, wo, wd, odt), 20))
-    print(f"phase 6 times ({card}), {F_MAIN} frames 512x512 u16 per call: "
-          f"pack kernel {ms['pack']} ms = {F_MAIN / ms['pack'] * 1e3} "
-          f"frames/s, plain {plain_ms['pack']} ms, tiled {tiled_here[0]} "
-          f"ms; unpack kernel "
-          f"{ms['unpack']} ms = {F_MAIN / ms['unpack'] * 1e3} frames/s, "
-          f"plain {plain_ms['unpack']} ms, tiled {tiled_here[1]} ms; "
-          f"end to end compress "
-          f"{F_MAIN / t_enc} frames/s, decompress {F_MAIN / t_dec} frames/s",
-          flush=True)
-    del main_inputs, m, x, wo, wd
-    for side, (F, m) in big_inputs.items():
-        spec, x, wo, wd, odt = (m["spec"], m["x"], m["wo"], m["wd"],
-                                m["odt"])
-        t = {
-            "pack_tiled": _time_ms(lambda: encode_batch_tiled(spec, x), 10),
-            "unpack_tiled": _time_ms(
-                lambda: decode_batch_tiled(spec, wo, wd, odt), 10),
-            "pack_tiled plain": _time_ms(
-                lambda: encode_batch_tiled_plain(spec, x), 2),
-            "unpack_tiled plain": _time_ms(
-                lambda: decode_batch_tiled_plain(spec, wo, wd, odt), 2),
-        }
-        if side == BIG[0][0]:
-            t["pack untiled"] = _time_ms(lambda: encode_batch(spec, x), 3)
-            t["unpack untiled"] = _time_ms(
-                lambda: decode_batch(spec, wo, wd, odt), 3)
-            for k in ("pack_tiled", "unpack_tiled"):
-                ms[k], plain_ms[k] = t[k], t[f"{k} plain"]
-        print(f"phase 6 times ({card}), {F} frames {side}x{side} u32 per "
-              f"call, {TILE_BLOCKS}-block tiles, ms: "
-              + ", ".join(f"{k} {v}" for k, v in t.items())
-              + f"; frames/s: pack {F / t['pack_tiled'] * 1e3}, unpack "
-              f"{F / t['unpack_tiled'] * 1e3}", flush=True)
-        del x, wo, wd, m
+    # phase 6: each kernel's times at the shape of a path that runs it,
+    # and the bytes it must move there: every input read once, every
+    # output written once (the words each frame defines; the unpack reads
+    # the same words, the widths, and writes the pixels)
+    def traffic(m):
+        spec, x, wd, odt = m["spec"], m["x"], m["wd"], m["odt"]
+        F = x.shape[0]
+        pack = encode_batch_tiled if spec.tiled_pack else encode_batch
+        bits = pack(spec, x)[1]
+        stream = 4 * int(defined_words(bits).sum().item())
+        pixels_in = x.numel() * x.element_size()
+        pixels_out = F * spec.n * (2 if odt == torch.uint16 else 4)
+        return {"pack": (pixels_in, stream + 8 * F),
+                "unpack": (stream + wd.numel(), pixels_out)}
+
+    main_name = f"{F_MAIN}x{SIDE}x{SIDE} u16"
+    big_name = {side: f"{F}x{side}x{side} u32" for side, F in BIG}
+    # the kernels line's shapes: the 512x512 path for the one-pass kernels,
+    # the wide-block path for the tiled pack, the 4096x4096 path for the
+    # tiled unpack
+    at = {"pack": (main_inputs, main_name, 20),
+          "unpack": (main_inputs, main_name, 20),
+          "pack_tiled": (wide_inputs, wide_name, 10),
+          "unpack_tiled": (big_inputs[4096], big_name[4096], 10)}
+    ms, event, plain_ms, io_bytes, shape = {}, {}, {}, {}, {}
+    for k, (m, name, iters) in at.items():
+        fn, plain = calls(m)[k]
+        # device time (the line's "ms"), beside the CUDA-event time of a
+        # loop of calls, which includes whatever host work outlasts the
+        # kernels
+        ms[k] = device_ms(fn, iters)
+        event[k] = event_ms(fn, iters)
+        plain_ms[k] = event_ms(plain, 2)
+        io_bytes[k] = traffic(m)[k.split("_")[0]]
+        shape[k] = name
+        print(f"phase 6 {k} ({card}) at {name}: {ms[k]} ms device = "
+              f"{m['x'].shape[0] / ms[k] * 1e3} frames/s (events "
+              f"{event[k]} ms), bytes in {io_bytes[k][0]} out "
+              f"{io_bytes[k][1]}, bound {_bound_ms(sum(io_bytes[k]))} ms, "
+              f"plain {plain_ms[k]} ms", flush=True)
+    # the pack's one fill: its zeroed scratch (ticket, tile descriptors,
+    # widths), part of its time above
+    spec = main_inputs["spec"]
+    tiles = -(-spec.nb // pack_geometry(spec)[0])
+    fill_ms = event_ms(lambda: torch.zeros(
+        (pack_scratch_ints(F_MAIN, tiles),), dtype=torch.int32, device=dev),
+        20)
+    # the other routes at the 512x512 and big shapes, 32 x 2048x2048 u32
+    # among them, which the tiled kernels took before the one-pass ones
+    # (route_sweep times both routes at 1-256 frames)
+    others = [(main_name, k) for k in tiled] + [
+        (big_name[s], k) for s in big_name for k in one_pass + tiled
+        if (big_name[s], k) != (shape["unpack_tiled"], "unpack_tiled")]
+    ins = {main_name: main_inputs,
+           **{big_name[s]: big_inputs[s] for s in big_name}}
+    other_ms = {}
+    for name, k in others:
+        fn = calls(ins[name])[k][0]
+        other_ms[f"{k} at {name}"] = (device_ms(fn, 10), event_ms(fn, 10))
+    print(f"phase 6 other routes ({card}), ms device / events: pack scratch "
+          f"fill at {main_name} {fill_ms} (events); " + "; ".join(
+              f"{k} {d} / {e}" for k, (d, e) in other_ms.items())
+          + f"; end to end at {main_name}: compress {F_MAIN / t_enc} "
+          f"frames/s, decompress {F_MAIN / t_dec} frames/s", flush=True)
+    del main_inputs, wide_inputs, m
     big_inputs.clear()
 
     # phase 7: the stream path
@@ -834,11 +944,14 @@ def main() -> int:
                               "trpx_tpu/ops/pallas_pack.py:1013"),
                "unpack_tiled": ("unpack_tiled.cu",
                                 "trpx_tpu/ops/pallas_unpack.py:824")}
+    # no PyTorch call computes a TRPX pack or unpack: no library time
     kernels = [
         {"name": k, "route": "cuda",
          "source": f"trpx_tpu_torch/csrc/{src}", "replaces": replaces,
-         "launches": launches[k], "max_abs_err": err[k], "ms": ms[k],
-         "plain_ms": plain_ms[k]}
+         "shape": shape[k], "launches": launches[k], "max_abs_err": err[k],
+         "ms": ms[k], "plain_ms": plain_ms[k],
+         "bound_ms": _bound_ms(sum(io_bytes[k])),
+         "bound_by": "bytes", "library_ms": None}
         for k, (src, replaces) in sources.items()]
     print(f"total {time.perf_counter() - t_start:.1f} s", flush=True)
     print(card)

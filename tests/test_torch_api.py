@@ -1,7 +1,8 @@
 """PyTorch port, public API: compress/decompress with device="cpu" against
-``trpx_tpu.api`` with device=True, archives crossing between the packages,
-the routing rules, and the port's freedom from JAX. Inputs come from numpy
-seeds; tolerance exact.
+``trpx_tpu.api`` with device=True, archives crossing between the packages
+as bytes, the routing rules (the card by default, raising without one),
+and the port's freedom from the JAX package. Inputs come from numpy seeds;
+tolerance exact.
 """
 
 import re
@@ -15,10 +16,11 @@ import torch
 
 import trpx_tpu_torch
 from trpx_tpu import api as japi
-from trpx_tpu.format.pycodec import TrpxArchive
-from trpx_tpu.io import read_trpx, write_trpx
-from trpx_tpu.native import codec as ncodec
+from trpx_tpu.io import read_trpx as jread_trpx
 from trpx_tpu_torch import api as tapi
+from trpx_tpu_torch.format.pycodec import TrpxArchive
+from trpx_tpu_torch.io import read_trpx, write_trpx
+from trpx_tpu_torch.native import codec as ncodec
 from trpx_tpu_torch.ops import coding as tcoding
 from trpx_tpu_torch.ops.cuda_pack import encode_batch
 from trpx_tpu_torch.ops.cuda_unpack import decode_batch
@@ -62,7 +64,7 @@ def test_frame_subset_matches_jax_api(sel):
     fr = _stack((3, 20, 50), seed=2)
     arch = ncodec.encode(fr.reshape(3, -1), dimensions=(50, 20))
     ours = trpx_tpu_torch.decompress(arch, device="cpu", frames=sel)
-    ref = japi.decompress(arch, device=True, frames=sel)
+    ref = japi.decompress(arch.to_bytes(), device=True, frames=sel)
     assert ours.shape == ref.shape
     np.testing.assert_array_equal(ours, ref)
     np.testing.assert_array_equal(ours, fr[sel])
@@ -72,22 +74,27 @@ def test_archives_cross_between_packages(tmp_path):
     fr = _stack((3, 20, 50), seed=3)
     jax_arch = japi.compress(fr, device=True)
     np.testing.assert_array_equal(
-        trpx_tpu_torch.decompress(jax_arch, device="cpu"), fr)
+        trpx_tpu_torch.decompress(jax_arch.to_bytes(), device="cpu"), fr)
+    with pytest.raises(TypeError, match="to_bytes"):
+        trpx_tpu_torch.decompress(jax_arch, device="cpu")
     ours = trpx_tpu_torch.compress(fr, device="cpu")
-    np.testing.assert_array_equal(japi.decompress(ours, device=True), fr)
-    # a file with a v2 sidecar: offsets and width tables skip the walk
+    np.testing.assert_array_equal(
+        japi.decompress(ours.to_bytes(), device=True), fr)
+    # a file with a v2 sidecar, written by the port and read by both
+    # packages: offsets and width tables skip the walk
     path = tmp_path / "movie.trpx"
     write_trpx(ours, path, index=True)
-    a, b = read_trpx(path), read_trpx(path)
+    a, b = read_trpx(path), jread_trpx(path)
     assert a.width_table is not None
+    np.testing.assert_array_equal(a.width_table, b.width_table)
     np.testing.assert_array_equal(
         trpx_tpu_torch.decompress(a, device="cpu"),
         japi.decompress(b, device=True))
-    # and the port's walk cache is what the JAX package reads back
+    # the port's walk cache equals the tables the JAX package computes
     fresh = TrpxArchive.from_bytes(ours.to_bytes())
     trpx_tpu_torch.decompress(fresh, device="cpu")
     assert fresh.width_table.dtype == np.uint8
-    np.testing.assert_array_equal(japi.decompress(fresh, device=True), fr)
+    np.testing.assert_array_equal(fresh.width_table, b.width_table)
 
 
 def test_chunked_decode_of_more_than_256_frames(monkeypatch):
@@ -118,16 +125,42 @@ def test_routing(monkeypatch):
 
     monkeypatch.setattr(tapi.ops, "encode", no_device)
     monkeypatch.setattr(tapi.ops, "decode", no_device)
-    # host codec: forced, and by default for small workloads
-    for device in (False, None):
-        arch = trpx_tpu_torch.compress(fr, device=device)
-        np.testing.assert_array_equal(
-            trpx_tpu_torch.decompress(arch, device=device), fr)
+    # device=False: the host codec, for any size
+    arch = trpx_tpu_torch.compress(fr, device=False)
+    np.testing.assert_array_equal(
+        trpx_tpu_torch.decompress(arch, device=False), fr)
+    # what no kernel takes goes to the host codec by default, card or not
     monkeypatch.setattr(tapi.torch.cuda, "is_available", lambda: False)
-    big = np.zeros((20, 512, 512), np.uint16)    # 10 MiB, above 4 MiB
-    trpx_tpu_torch.compress(big)                 # no card: host codec
-    assert tapi._torch_device(True, False) == torch.device("cuda")
-    assert tapi._torch_device("cpu", False) == torch.device("cpu")
+    wide = fr.astype(np.int64)
+    np.testing.assert_array_equal(
+        trpx_tpu_torch.decompress(trpx_tpu_torch.compress(wide),
+                                  dtype=np.int64), wide)
+    np.testing.assert_array_equal(
+        trpx_tpu_torch.decompress(arch, dtype=np.uint64), fr)
+    monkeypatch.setattr(tapi.torch.cuda, "is_available", lambda: True)
+    for device in (None, True, "cuda"):
+        assert tapi._torch_device(device) == torch.device("cuda")
+    assert tapi._torch_device("cuda:1") == torch.device("cuda:1")
+    assert tapi._torch_device("cpu") == torch.device("cpu")
+    assert tapi._torch_device(False) is None
+
+
+def test_default_device_needs_a_card(monkeypatch):
+    """device=None means the card: without one, compress and decompress
+    raise and name both ways to the CPU; the 4 MiB host route is gone."""
+    monkeypatch.setattr(tapi.torch.cuda, "is_available", lambda: False)
+    small = _stack((2, 20, 50), seed=6)
+    big = np.zeros((20, 512, 512), np.uint16)    # 10 MiB
+    blob = ncodec.encode(small.reshape(2, -1)).to_bytes()
+    for call in (lambda: trpx_tpu_torch.compress(small),
+                 lambda: trpx_tpu_torch.compress(big),
+                 lambda: trpx_tpu_torch.compress(small, device=True),
+                 lambda: trpx_tpu_torch.decompress(blob),
+                 lambda: trpx_tpu_torch.decompress(blob, device="cuda")):
+        with pytest.raises(RuntimeError,
+                           match=r"device='cpu'.*device=False"):
+            call()
+    assert encode_batch.launches == 0 and decode_batch.launches == 0
 
 
 def test_device_decode_refuses_what_it_cannot_hold():
@@ -149,8 +182,8 @@ def test_cuda_request_without_cuda_raises():
 
 def test_port_sources_import_no_jax():
     pattern = re.compile(
-        r"^\s*(import jax|from jax|(from|import) trpx_tpu\.(ops|parallel|"
-        r"runtime|cli)\b)", re.M)
+        r"^\s*(import jax|from jax|(from|import) trpx_tpu(?!_torch)\b)",
+        re.M)
     files = sorted((REPO / "trpx_tpu_torch").rglob("*.py"))
     files.append(REPO / "chip_smoke.py")
     assert len(files) > 5

@@ -8,8 +8,10 @@ import pytest
 import torch
 
 import jax.numpy as jnp
-from trpx_tpu.native import codec as ncodec
+from trpx_tpu.format import pycodec as jpycodec
 from trpx_tpu.ops import coding as jcoding
+from trpx_tpu_torch.format.pycodec import TrpxArchive
+from trpx_tpu_torch.native import codec as ncodec
 from trpx_tpu_torch.ops import coding as tcoding
 from trpx_tpu_torch.ops.cuda_pack import plan_batch
 
@@ -77,8 +79,7 @@ def test_narrow_values_matches_jax():
 
 
 def _foreign(arch):
-    from trpx_tpu.format.pycodec import TrpxArchive
-
+    """The archive as a reader without its sidecar sees it: no tables."""
     return TrpxArchive.from_bytes(arch.to_bytes())
 
 
@@ -88,7 +89,10 @@ def test_walk_archive_matches_jax(indexed):
     arch = ncodec.encode(fr)
     spec = tcoding.FrameSpec.for_dtype(1000, np.uint16)
     jspec = jcoding.FrameSpec.for_dtype(1000, np.uint16)
-    a, b = (arch, arch) if indexed else (_foreign(arch), _foreign(arch))
+    a = arch if indexed else _foreign(arch)
+    b = jpycodec.TrpxArchive.from_bytes(arch.to_bytes())  # JAX's own object
+    if indexed:
+        b.frame_index = arch.frame_index
     widths, words = tcoding.walk_archive(a, spec)
     jw, _, jwords = jcoding.walk_archive(b, jspec)
     np.testing.assert_array_equal(widths, jw)

@@ -6,15 +6,17 @@ without the suite's conftest (which imports jax):
 
     python -m pytest --noconftest -q tests/test_torch_cuda.py
 
-Tolerance: exact (lossless integer codec).
+Tolerance: exact (lossless integer codec). The one-pass pack defines
+only the words of each frame's stream (``cuda_pack.defined_words``), so
+its words are compared through ``stream_words``.
 """
 
 import numpy as np
 import pytest
 import torch
 
-from trpx_tpu.native import codec as ncodec
 from trpx_tpu_torch import compress, decompress
+from trpx_tpu_torch.native import codec as ncodec
 from trpx_tpu_torch.ops import (
     TILE_BLOCKS,
     FrameSpec,
@@ -30,6 +32,12 @@ from trpx_tpu_torch.ops import (
     walk_archive,
 )
 from trpx_tpu_torch.ops.coding import _pad_batch
+from trpx_tpu_torch.ops.cuda_pack import (
+    block_widths,
+    pack_geometry,
+    stream_words,
+)
+from trpx_tpu_torch.ops.cuda_unpack import unpack_geometry
 
 pytestmark = pytest.mark.cuda
 
@@ -60,6 +68,13 @@ CASES = [(np.uint16, 512 * 512), (np.uint16, 1000), (np.uint16, 100),
          (np.uint32, 777), (np.int32, 1001)]
 
 
+def _same_pack(got, want):
+    """Both packs agree on bits, widths and each frame's defined words."""
+    (words, bits, maxw), (pw, pb, pm) = got, want
+    assert torch.equal(bits, pb) and torch.equal(maxw, pm)
+    assert torch.equal(stream_words(words, bits), pw)
+
+
 @pytest.mark.parametrize("dtype,n", CASES)
 def test_pack_kernel_matches_plain(cuda, dtype, n):
     fr = _frames(dtype, n, seed=n)
@@ -68,8 +83,7 @@ def test_pack_kernel_matches_plain(cuda, dtype, n):
     before = encode_batch.launches
     got = encode_batch(spec, x)
     assert encode_batch.launches == before + 1
-    for g, w in zip(got, encode_batch_plain(spec, x)):
-        assert torch.equal(g, w)
+    _same_pack(got, encode_batch_plain(spec, x))
 
 
 @pytest.mark.parametrize("dtype,n", CASES)
@@ -89,6 +103,101 @@ def test_unpack_kernel_matches_plain(cuda, dtype, n):
         assert torch.equal(got, want)
     np.testing.assert_array_equal(
         decode_batch(spec, wo, wd, decoded_dtype(spec)).cpu().numpy()
+        .astype(dtype), fr)
+
+
+def _one_pass_frames(dtype, n, kind, block=12):
+    """Inputs of the one-pass kernels' hard cases: every value at the
+    dtype's extreme (the widest stream a tile can hold; 33-bit fields for
+    int32), all zero, and frames whose tile edges (of the wrapper's tile
+    size) fall on a width change and on a repeated width."""
+    info = np.iinfo(dtype)
+    if kind == "max":
+        return np.full((2, n), info.min if info.min < 0 else info.max, dtype)
+    if kind == "zero":
+        return np.zeros((2, n), dtype)
+    fr = _frames(dtype, n, seed=n + len(kind), F=2)
+    tb = pack_geometry(FrameSpec.for_dtype(n, dtype, block))[0]
+    edge = tb * block
+    if kind == "edge change":
+        fr[0, :] = 3
+        fr[0, edge : edge + block] = info.max   # new width at the edge
+        fr[1, edge - block : edge] = 0          # width 0 just before it
+    else:                                       # "edge repeat"
+        fr[:] = 5                               # 1-bit headers everywhere
+    return fr
+
+
+ONE_PASS_CASES = [
+    (dt, n, kind)
+    for dt in (np.uint8, np.int8, np.uint16, np.int16, np.uint32, np.int32)
+    for n, kind in ((1, "max"), (13, "zero"), (1001, "max"),
+                    (40_000, "max"), (40_000, "zero"),
+                    (40_000, "edge change"), (40_000, "edge repeat"))]
+
+
+@pytest.mark.parametrize("dtype,n,kind", ONE_PASS_CASES)
+def test_one_pass_kernels_match_plain(cuda, dtype, n, kind):
+    """pack.cu and unpack.cu against their plain versions on the worst
+    case, an all-zero frame, tiny and partial-block frames and tile
+    edges."""
+    fr = _one_pass_frames(dtype, n, kind)
+    spec = FrameSpec.for_dtype(n, dtype)
+    x = torch.from_numpy(_pad_batch(fr, spec)).to(cuda)
+    want = encode_batch_plain(spec, x)
+    _same_pack(encode_batch(spec, x), want)
+    wd = block_widths(spec, x)[1].to(torch.uint8).contiguous()
+    for odt in {decoded_dtype(spec), torch.int32}:
+        got = decode_batch(spec, want[0], wd, odt)
+        ref = decode_batch_plain(spec, want[0], wd, odt)
+        if odt == torch.uint16:
+            got, ref = got.view(torch.int16), ref.view(torch.int16)
+        assert torch.equal(got, ref)
+
+
+@pytest.mark.parametrize("block", [3, 7, 64])
+@pytest.mark.parametrize("dtype", [np.uint16, np.int32])
+def test_one_pass_kernels_other_blocks(cuda, dtype, block):
+    """The generic-block instances of both kernels (block 12 is a
+    compile-time constant), across several tiles."""
+    n = 3 * pack_geometry(FrameSpec.for_dtype(10**5, dtype, block))[0] \
+        * block + 5
+    fr = _frames(dtype, n, seed=block)
+    spec = FrameSpec.for_dtype(n, dtype, block)
+    assert unpack_geometry(spec)[0] >= 32
+    x = torch.from_numpy(_pad_batch(fr, spec)).to(cuda)
+    want = encode_batch_plain(spec, x)
+    _same_pack(encode_batch(spec, x), want)
+    wd = block_widths(spec, x)[1].to(torch.uint8).contiguous()
+    got = decode_batch(spec, want[0], wd, decoded_dtype(spec))
+    np.testing.assert_array_equal(got.cpu().numpy().astype(dtype), fr)
+
+
+@pytest.mark.parametrize("dtype", [np.uint32, np.int32])
+def test_wide_blocks_on_card(cuda, dtype):
+    """Blocks of 1,024 32-bit values, too large for a tile of the one-pass
+    pack: the tiled pack, and the one-pass unpack at its smallest tiles
+    (the generic-block instance) and the tiled unpack, against their plain
+    versions across several tiles, worst-case fields included."""
+    block = 1024
+    spec0 = FrameSpec.for_dtype(10**6, dtype, block)
+    assert spec0.tiled_pack and not spec0.tiled(64)
+    n = 3 * unpack_geometry(spec0)[0] * block + 5
+    fr = _frames(dtype, n, seed=7)
+    info = np.iinfo(dtype)
+    fr[1, block * 40 : block * 41] = info.min if info.min < 0 else info.max
+    spec = FrameSpec.for_dtype(n, dtype, block)
+    x = torch.from_numpy(_pad_batch(fr, spec)).to(cuda)
+    got = encode_batch_tiled(spec, x)
+    for g, w in zip(got, encode_batch_tiled_plain(spec, x)):
+        assert torch.equal(g, w)
+    wd = block_widths(spec, x)[1].to(torch.uint8).contiguous()
+    for odt in {decoded_dtype(spec), torch.int32}:
+        want = decode_batch_plain(spec, got[0], wd, odt)
+        assert torch.equal(decode_batch(spec, got[0], wd, odt), want)
+        assert torch.equal(decode_batch_tiled(spec, got[0], wd, odt), want)
+    np.testing.assert_array_equal(
+        decode_batch(spec, got[0], wd, decoded_dtype(spec)).cpu().numpy()
         .astype(dtype), fr)
 
 
@@ -171,7 +280,9 @@ def test_tiled_unpack_kernel_matches_plain(cuda, dtype, n, tile_blocks):
 
 
 def test_big_frame_path_round_trip(cuda):
-    """2048x2048 u32 frames take the tiled kernels and only them."""
+    """Two 2048x2048 u32 frames take the one-pass pack and, being fewer
+    than TILED_MAX_FRAMES frames of TILED_MIN_BLOCKS blocks or more, the
+    tiled unpack."""
     rng = np.random.default_rng(2048)
     fr = rng.poisson(3.0, (2, 2048 * 2048)).astype(np.uint32)
     fr[np.repeat([0, 1], 200), rng.integers(0, fr.shape[1], 400)] = \
@@ -185,8 +296,8 @@ def test_big_frame_path_round_trip(cuda):
     np.testing.assert_array_equal(decompress(arch, device=cuda), fr)
     after = (encode_batch.launches, decode_batch.launches,
              encode_batch_tiled.launches, decode_batch_tiled.launches)
-    assert after[:2] == counts[:2]
-    assert after[2] > counts[2] and after[3] > counts[3]
+    assert after[0] > counts[0] and after[3] > counts[3]
+    assert (after[1], after[2]) == (counts[1], counts[2])
 
 
 def test_stream_encoder_on_card_equals_cpu_run(cuda, tmp_path):

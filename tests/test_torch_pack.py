@@ -11,10 +11,10 @@ import numpy as np
 import pytest
 import torch
 
-from trpx_tpu.format import pycodec
-from trpx_tpu.native import codec as ncodec
 from trpx_tpu.ops import coding as jcoding
 from trpx_tpu.ops import pallas_pack
+from trpx_tpu_torch.format import pycodec
+from trpx_tpu_torch.native import codec as ncodec
 from trpx_tpu_torch.ops import coding as tcoding
 from trpx_tpu_torch.ops.cuda_pack import encode_batch, encode_batch_plain
 

@@ -15,14 +15,20 @@ import pytest
 import torch
 
 import trpx_tpu_torch
-from trpx_tpu.format import pycodec
-from trpx_tpu.io.trpx import _compute_offsets, read_index_full, read_trpx
-from trpx_tpu.native import codec as ncodec
+from trpx_tpu.format import pycodec as jpycodec
 from trpx_tpu.runtime import RunReport as JRunReport
 from trpx_tpu.runtime import StageTimer as JStageTimer
 from trpx_tpu.runtime import StreamingEncoder as JStreamingEncoder
 from trpx_tpu.runtime import iter_decode as jiter_decode
 from trpx_tpu_torch import api as tapi
+from trpx_tpu_torch.format import pycodec
+from trpx_tpu_torch.io.trpx import (
+    _compute_offsets,
+    read_index_full,
+    read_trpx,
+    write_trpx,
+)
+from trpx_tpu_torch.native import codec as ncodec
 from trpx_tpu_torch.ops import coding as tcoding
 from trpx_tpu_torch.runtime import (
     RunReport,
@@ -94,27 +100,41 @@ def test_stream_bytes_and_manifests_match_jax(tmp_path, backend, dtype, n):
 
 
 def test_stream_join_of_untiled_and_tiled_chunks(tmp_path, monkeypatch):
-    """Full chunks take the untiled pack and the partial last chunk the
-    tiled one (here with 4-block tiles); the file is still exact."""
-    monkeypatch.setattr(tcoding, "TILE_BLOCKS", 4)
+    """Every chunk of a stream encode takes the one-pass pack; its decode
+    in chunks of 7 takes the one-pass unpack for the full chunks and the
+    tiled one (here with 4-block tiles) for the partial last chunk. The
+    file and the pixels are still exact."""
+    monkeypatch.setattr(tcoding, "TILED_MIN_BLOCKS", 4)
     monkeypatch.setattr(tcoding, "TILED_MAX_FRAMES", 4)
     calls = []
-    real = tcoding.encode_batch_tiled
 
-    def tiled(spec, x, tile_blocks=4):
-        calls.append(len(x))
-        return real(spec, x, tile_blocks)
+    def spy(fn, tile_blocks=None):
+        def wrapped(spec, *args):
+            calls.append((fn.__name__, len(args[0])))
+            return fn(spec, *args, *(() if tile_blocks is None
+                                     else (tile_blocks,)))
+        return wrapped
 
-    monkeypatch.setattr(tcoding, "encode_batch_tiled", tiled)
+    for name in ("encode_batch", "encode_batch_tiled", "decode_batch"):
+        monkeypatch.setattr(tcoding, name, spy(getattr(tcoding, name)))
+    monkeypatch.setattr(tcoding, "decode_batch_tiled",
+                        spy(tcoding.decode_batch_tiled, 4))
     fr = _frames(17, 200, seed=3)
     fr.setflags(write=False)      # staging only reads the frames
-    enc = _port(tmp_path / "j.trpx", 200, np.uint16)
+    path = tmp_path / "j.trpx"
+    enc = _port(path, 200, np.uint16)
     for lo in range(0, 17, 7):
         enc.add_frames(fr[lo : lo + 7])
     enc.finalize(verify=True)
-    assert calls == [3]
-    assert (tmp_path / "j.trpx").read_bytes() == \
-        pycodec.encode(list(fr)).to_bytes()
+    assert calls == [("encode_batch", 7), ("encode_batch", 7),
+                     ("encode_batch", 3)]
+    assert path.read_bytes() == pycodec.encode(list(fr)).to_bytes()
+    calls.clear()
+    got = np.concatenate(list(iter_decode(path, np.uint16, 7,
+                                          device="cpu")))
+    np.testing.assert_array_equal(got, fr)
+    assert calls == [("decode_batch", 7), ("decode_batch", 7),
+                     ("decode_batch_tiled", 3)]
 
 
 def _resume_case(tmp_path, case, fr):
@@ -237,8 +257,7 @@ def test_device_backend_without_cuda_raises(tmp_path, monkeypatch):
 
 def _decode_both(arch, dtype, C, **kw):
     ours = list(iter_decode(arch, dtype, C, device="cpu", **kw))
-    ref = list(jiter_decode(pycodec.TrpxArchive(meta=arch.meta,
-                                                payload=arch.payload),
+    ref = list(jiter_decode(jpycodec.TrpxArchive.from_bytes(arch.to_bytes()),
                             dtype, C, device=True))
     return ours, ref
 
@@ -266,8 +285,6 @@ def test_iter_decode_matches_jax(dtype, n, C):
 def test_iter_decode_uses_proven_sidecar_tables(tmp_path, monkeypatch):
     fr = _frames(10, 200, seed=11)
     path = tmp_path / "i.trpx"
-    from trpx_tpu.io.trpx import write_trpx
-
     write_trpx(ncodec.encode(fr), path, index=True)
 
     def no_walk(*a, **k):
@@ -307,7 +324,7 @@ def test_iter_decode_host_branch_matches_jax():
     fr = _frames(9, 70, seed=13)
     arch = ncodec.encode(fr)
     ours = list(iter_decode(arch, np.uint16, 4, device=False))
-    ref = list(jiter_decode(arch, np.uint16, 4, device=False))
+    ref = list(jiter_decode(arch.to_bytes(), np.uint16, 4, device=False))
     assert len(ours) == len(ref) == 3
     for a, b in zip(ours, ref):
         np.testing.assert_array_equal(a, b)
@@ -392,3 +409,15 @@ def test_runtime_imports_leave_jax_unloaded():
                        capture_output=True, text=True, timeout=120)
     assert r.returncode == 0, r.stderr
     assert r.stdout.strip() == "ok"
+
+
+def test_iter_decode_default_device_needs_a_card(monkeypatch):
+    """iter_decode(device=None) decodes on the card and raises without
+    one; a 64-bit target has no kernel and takes the host codec."""
+    monkeypatch.setattr(tapi.torch.cuda, "is_available", lambda: False)
+    fr = _frames(5, 40, seed=16)
+    arch = ncodec.encode(fr)
+    with pytest.raises(RuntimeError, match=r"device='cpu'.*device=False"):
+        next(iter_decode(arch, np.uint16, 2))
+    wide = np.concatenate(list(iter_decode(arch, np.uint64, 2)))
+    np.testing.assert_array_equal(wide, fr)

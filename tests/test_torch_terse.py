@@ -2,9 +2,11 @@
 numpy-seeded frames: serialized bytes, every ``prolix(i)``, the metadata
 accessors, appends after ``from_stream`` and the validation errors. The
 port runs on ``device="cpu"`` (the kernels' plain versions) and on the
-host codec. Tolerance: exact (lossless codec).
+host codec; its default, the card, raises here. Tolerance: exact (lossless
+codec).
 """
 
+import functools
 import io
 
 import numpy as np
@@ -13,6 +15,7 @@ import pytest
 import trpx_tpu
 import trpx_tpu_torch
 from trpx_tpu.format import pycodec
+from trpx_tpu_torch import api as tapi
 from trpx_tpu_torch import ops as tops
 
 DEVICES = ["cpu", False]
@@ -115,7 +118,8 @@ def test_float_frames_truncate_like_jax():
     (np.array(["x"] * 10), TypeError),                   # not integral
 ])
 def test_validation_matches_jax(bad, err):
-    for cls in (trpx_tpu_torch.Terse, trpx_tpu.Terse):
+    for cls in (functools.partial(trpx_tpu_torch.Terse, device=False),
+                trpx_tpu.Terse):
         t = cls(np.arange(10, dtype=np.uint16).reshape(2, 5))
         with pytest.raises(err):
             t.push_back(bad)
@@ -123,7 +127,8 @@ def test_validation_matches_jax(bad, err):
 
 
 def test_empty_and_out_of_range():
-    for cls in (trpx_tpu_torch.Terse, trpx_tpu.Terse):
+    for cls in (functools.partial(trpx_tpu_torch.Terse, device=False),
+                trpx_tpu.Terse):
         with pytest.raises(ValueError, match="empty"):
             cls().prolix()
         t = cls(np.arange(10, dtype=np.uint16))
@@ -132,3 +137,20 @@ def test_empty_and_out_of_range():
         with pytest.raises(IndexError):
             t.prolix(-1)
         assert cls(np.arange(-500, 500, dtype=np.int32)).is_signed
+
+
+def test_default_device_needs_a_card(monkeypatch):
+    """Terse(device=None) encodes and decodes on the card: without one,
+    the first encode and from_stream's prolix raise, naming the CPU ways;
+    64-bit frames still take the host codec."""
+    monkeypatch.setattr(tapi.torch.cuda, "is_available", lambda: False)
+    fr = _stack(2, 8, 8, seed=4)
+    t = trpx_tpu_torch.Terse(fr)
+    assert t.number_of_frames == 2          # pushing needs no device
+    with pytest.raises(RuntimeError, match=r"device='cpu'.*device=False"):
+        t.terse_size
+    blob = _written(trpx_tpu.Terse(fr))
+    with pytest.raises(RuntimeError, match="device=False"):
+        trpx_tpu_torch.Terse.from_stream(blob).prolix(1)
+    wide = trpx_tpu_torch.Terse(fr.astype(np.int64))
+    assert _written(wide) == _written(trpx_tpu.Terse(fr.astype(np.int64)))

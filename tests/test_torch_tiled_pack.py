@@ -16,10 +16,11 @@ import torch
 
 import trpx_tpu_torch
 from test_format_golden import GOLDEN
-from trpx_tpu.format.pycodec import TrpxArchive
-from trpx_tpu.native import codec as ncodec
+from test_torch_pack import _any_frames
 from trpx_tpu.ops import coding as jcoding
 from trpx_tpu.ops import pallas_pack
+from trpx_tpu_torch.format.pycodec import TrpxArchive
+from trpx_tpu_torch.native import codec as ncodec
 from trpx_tpu_torch.ops import coding as tcoding
 from trpx_tpu_torch.ops.cuda_pack import (
     TILE_BLOCKS,
@@ -136,32 +137,44 @@ def test_golden_vectors_through_tiled_encode(name, vals, dtype, block, attrs,
 
 
 def test_tiled_routing_by_block_count():
-    """Frames within one tile never take the tiled kernels."""
+    """Frames of fewer than TILED_MIN_BLOCKS blocks (a 2048x2048 frame's)
+    never take the tiled unpack."""
     spec = tcoding.FrameSpec.for_dtype
-    for side in (512, 1024, 2048, 4096):                # >= 21,846 blocks
+    for side in (2048, 4096):                           # >= 349,526 blocks
         assert spec(side * side, np.uint32).tiled(1)
-    assert not spec(256 * 256, np.uint16).tiled(1)      # 5,462 blocks
-    edge = TILE_BLOCKS * 12
-    assert not spec(edge, np.uint16).tiled(1)
-    assert spec(edge + 1, np.uint16).tiled(1)
+    for side in (256, 512, 1024):                       # <= 87,382 blocks
+        assert not spec(side * side, np.uint32).tiled(1)
+    edge = tcoding.TILED_MIN_BLOCKS * 12
+    assert not spec(edge - 12, np.uint16).tiled(1)
+    assert spec(edge, np.uint16).tiled(1)
 
 
 def test_tiled_routing_by_frame_count():
-    """A batch large enough to fill the card with one CTA per frame takes
-    the untiled kernels: the 512x512 u16 batches of 256 frames do, the
-    2048x2048 u32 batches of 32 and 4096x4096 of 8 do not."""
+    """Decodes of few big frames take the tiled unpack: the 4096x4096 u32
+    batches of 8 do, the 2048x2048 u32 batches of 32 and the 512x512 u16
+    batches of 256 take the one-pass unpack. Encodes never route by frame
+    count: the one-pass pack takes every batch whose blocks it can
+    tile, and the tiled pack only blocks of hundreds of 32-bit values."""
     spec = tcoding.FrameSpec.for_dtype
     assert not spec(512 * 512, np.uint16).tiled(256)
-    assert spec(2048 * 2048, np.uint32).tiled(32)
+    assert not spec(2048 * 2048, np.uint32).tiled(32)
     assert spec(4096 * 4096, np.uint32).tiled(8)
+    for dtype in (np.uint8, np.int16, np.uint32, np.int32):
+        for block in (3, 12, 64, 512):
+            assert not spec(4096 * 4096, dtype, block).tiled_pack
+    assert spec(4096, np.int32, 1024).tiled_pack
+    assert spec(4096, np.uint32, 1024).tiled_pack
+    assert not spec(4096, np.uint16, 1024).tiled_pack
     limit = tcoding.TILED_MAX_FRAMES
-    assert spec(1024 * 1024, np.uint32).tiled(limit - 1)
-    assert not spec(1024 * 1024, np.uint32).tiled(limit)
+    assert spec(2048 * 2048, np.uint32).tiled(limit - 1)
+    assert not spec(2048 * 2048, np.uint32).tiled(limit)
+    assert not spec(1024 * 1024, np.uint32).tiled(1)
 
 
 def test_big_frame_takes_the_tiled_wrappers(monkeypatch):
     """One overflow-heavy 2048x2048 u32 frame through compress/decompress
-    on the CPU: the tiled wrappers run, the untiled ones never."""
+    on the CPU: the one-pass pack and the tiled unpack run, the other two
+    wrappers never."""
     rng = np.random.default_rng(2048)
     fr = rng.poisson(3.0, (1, 2048, 2048)).astype(np.uint32)
     fr.reshape(-1)[rng.integers(0, fr.size, 200)] = 2_000_000_000
@@ -174,11 +187,11 @@ def test_big_frame_takes_the_tiled_wrappers(monkeypatch):
         return wrapped
 
     def refuse(*args, **kwargs):
-        raise AssertionError("a big frame took an untiled kernel")
+        raise AssertionError("a big frame took the wrong kernel")
 
-    for name in ("encode_batch_tiled", "decode_batch_tiled"):
+    for name in ("encode_batch", "decode_batch_tiled"):
         monkeypatch.setattr(tcoding, name, spy(getattr(tcoding, name)))
-    monkeypatch.setattr(tcoding, "encode_batch", refuse)
+    monkeypatch.setattr(tcoding, "encode_batch_tiled", refuse)
     monkeypatch.setattr(tcoding, "decode_batch", refuse)
     arch = trpx_tpu_torch.compress(fr, device="cpu")
     assert arch.to_bytes() == ncodec.encode(
@@ -186,7 +199,31 @@ def test_big_frame_takes_the_tiled_wrappers(monkeypatch):
     out = trpx_tpu_torch.decompress(TrpxArchive.from_bytes(arch.to_bytes()),
                                     device="cpu")
     np.testing.assert_array_equal(out, fr[0])
-    assert calls == ["encode_batch_tiled", "decode_batch_tiled"]
+    assert calls == ["encode_batch", "decode_batch_tiled"]
+
+
+@pytest.mark.parametrize("dtype", [np.uint32, np.int32])
+def test_wide_blocks_take_the_tiled_pack(monkeypatch, dtype):
+    """Blocks of 1,024 32-bit values are too large for a tile of the
+    one-pass pack: compress takes the tiled pack, whose tiles have no
+    shared-memory size, and the bytes equal the native codec's."""
+    calls = []
+    real = tcoding.encode_batch_tiled
+
+    def spy(spec, x):
+        calls.append(len(x))
+        return real(spec, x, 4)
+
+    monkeypatch.setattr(tcoding, "encode_batch_tiled", spy)
+    monkeypatch.setattr(tcoding, "encode_batch", None)   # must not run
+    fr = _any_frames(dtype, 5000, seed=1024).reshape(3, 50, 100)
+    arch = trpx_tpu_torch.compress(fr, block=1024, device="cpu")
+    assert calls == [3]
+    assert arch.to_bytes() == ncodec.encode(
+        fr.reshape(3, -1), block=1024, dimensions=(100, 50)).to_bytes()
+    np.testing.assert_array_equal(
+        trpx_tpu_torch.decompress(arch.to_bytes(), dtype=dtype,
+                                  device="cpu"), fr)
 
 
 def test_tiled_wrapper_checks_inputs():

@@ -16,11 +16,12 @@ import torch
 
 from test_format_golden import GOLDEN
 from test_torch_tiled_pack import DTYPES, TB, edge_frames
-from trpx_tpu.format import encode as format_encode
-from trpx_tpu.format.pycodec import TrpxArchive
-from trpx_tpu.native import codec as ncodec
+from trpx_tpu.format.pycodec import TrpxArchive as JTrpxArchive
 from trpx_tpu.ops import coding as jcoding
 from trpx_tpu.ops import pallas_unpack
+from trpx_tpu_torch.format import encode as format_encode
+from trpx_tpu_torch.format.pycodec import TrpxArchive
+from trpx_tpu_torch.native import codec as ncodec
 from trpx_tpu_torch.ops import coding as tcoding
 from trpx_tpu_torch.ops.cuda_unpack import (
     decode_batch_plain,
@@ -34,6 +35,11 @@ from trpx_tpu_torch.ops.cuda_pack import tile_tables_plain
 def _foreign(arch):
     """The archive as a reader of its bytes sees it: no frame index."""
     return TrpxArchive.from_bytes(arch.to_bytes())
+
+
+def _jax(arch):
+    """The same bytes as an archive of the JAX package."""
+    return JTrpxArchive.from_bytes(arch.to_bytes())
 
 
 def _decode_case(kind: str, n: int) -> np.ndarray:
@@ -62,7 +68,7 @@ def test_tiled_plain_matches_pallas_tiled(kind, n):
     fr = _decode_case(kind, n)
     arch = ncodec.encode(fr)
     jspec = jcoding.FrameSpec.for_dtype(n, fr.dtype)
-    jwidths, _, jwords = jcoding.walk_archive(_foreign(arch), jspec)
+    jwidths, _, jwords = jcoding.walk_archive(_jax(arch), jspec)
     ref = jax.device_get(pallas_unpack.decode_tiled_host(
         jspec, jwords, jwidths, interpret=True, tile_blocks=TB))
     ref = jcoding.narrow_values(pallas_unpack.flatten_decoded(ref, n),

@@ -12,11 +12,12 @@ import pytest
 import torch
 
 from test_torch_pack import U16_CASES, _any_frames, u16_frames
-from trpx_tpu.format import pycodec
-from trpx_tpu.native import codec as ncodec
+from trpx_tpu.format import pycodec as jpycodec
 from trpx_tpu.ops import coding as jcoding
 from trpx_tpu.ops import pallas_unpack
 from trpx_tpu_torch.ops import coding as tcoding
+from trpx_tpu_torch.format import pycodec
+from trpx_tpu_torch.native import codec as ncodec
 from trpx_tpu_torch.ops.cuda_unpack import (
     decode_batch,
     decode_batch_plain,
@@ -29,12 +30,17 @@ def _foreign(arch):
     return pycodec.TrpxArchive.from_bytes(arch.to_bytes())
 
 
+def _jax(arch):
+    """The same bytes as an archive of the JAX package."""
+    return jpycodec.TrpxArchive.from_bytes(arch.to_bytes())
+
+
 @pytest.mark.parametrize("kind,n", U16_CASES)
 def test_u16_decode_matches_pallas_interpret(kind, n):
     fr = u16_frames(kind, n)
     arch = ncodec.encode(fr)
     ours = tcoding.decode(_foreign(arch), np.uint16, device="cpu")
-    ref = pallas_unpack.decode(_foreign(arch), np.uint16, interpret=True)
+    ref = pallas_unpack.decode(_jax(arch), np.uint16, interpret=True)
     assert ours.dtype == np.uint16
     np.testing.assert_array_equal(ours, ref)
     np.testing.assert_array_equal(ours, fr)
@@ -71,7 +77,7 @@ def test_unsigned_stream_into_signed_target_sign_extends(target):
     ours = tcoding.decode(_foreign(arch), target, device="cpu")
     np.testing.assert_array_equal(ours, ncodec.decode(arch, target))
     np.testing.assert_array_equal(
-        ours, jcoding.decode(_foreign(arch), target))
+        ours, jcoding.decode(_jax(arch), target))
 
 
 def test_wide_stream_routes_to_host_codec():

@@ -7,7 +7,7 @@ minutes). The library is built at first use, only from the package's own
 sources, into ``trpx_tpu_torch/_build/`` (git-ignored). Its file name
 carries a hash of the sources and flags, so an edited kernel is rebuilt,
 and the finished file is moved into place atomically, so concurrent
-builds race safely (as ``trpx_tpu.native`` does for the host codec).
+builds race safely (as ``native`` does for the host codec).
 
 Nothing here runs at import time: the CPU tests import every module on a
 machine without ``nvcc``.
@@ -88,10 +88,11 @@ def load() -> ctypes.CDLL:
             lib = ctypes.CDLL(str(build()))
             vp, i = ctypes.c_void_p, ctypes.c_int
             lib.trpx_pack.restype = i
-            lib.trpx_pack.argtypes = [vp, i, i, i, i, i, i, i, vp, vp, vp,
-                                      i, vp]
+            lib.trpx_pack.argtypes = [vp, i, i, i, i, i, i, i, i, i, vp, vp,
+                                      vp, i, vp]
             lib.trpx_unpack.restype = i
-            lib.trpx_unpack.argtypes = [vp, vp, i, i, i, i, i, i, vp, i, vp]
+            lib.trpx_unpack.argtypes = [vp, vp, i, i, i, i, i, i, i, i, i,
+                                        vp, vp, i, vp]
             lib.trpx_pack_tiled.restype = i
             lib.trpx_pack_tiled.argtypes = [vp, i, i, i, i, i, i, i, i, vp,
                                             vp, vp, vp, vp, i, vp]

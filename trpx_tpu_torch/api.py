@@ -1,18 +1,23 @@
 """High-level API of the PyTorch port: compress/decompress arrays.
 
-The same surface and routing rules as ``trpx_tpu.api``, with a torch
-device in place of the JAX backend:
+The surface of ``trpx_tpu.api`` with a torch device in place of the JAX
+backend. The entry points run on the card unless the caller asks for the
+CPU:
 
-* ``device=None`` picks the CUDA path for device dtypes ((u)int8/16/32)
-  when the workload reaches 4 MiB and ``torch.cuda.is_available()``, else
-  the native host codec;
-* ``device=False`` forces the host codec;
-* ``device=True`` means ``"cuda"``; a ``torch.device`` or a string such as
-  ``"cuda"``, ``"cuda:1"`` or ``"cpu"`` forces the torch path on that
-  device (on the CPU it runs the kernels' plain PyTorch versions).
+* ``device=None`` (the default) and ``device=True`` mean ``"cuda"``; on a
+  machine without a card the call raises RuntimeError;
+* a ``torch.device`` or its name (``"cuda"``, ``"cuda:1"``, ``"cpu"``)
+  runs the torch path there; on ``"cpu"`` it runs the kernels' plain
+  PyTorch versions;
+* ``device=False`` runs the native host codec.
 
-There is no fallback from a requested device: if CUDA is missing or a
-kernel fails, the call raises.
+64-bit frames (and float frames, truncated through int64 as the
+reference CLI does) have no kernel in either package: with
+``device=None`` they take the host codec, as do decodes into a target the
+kernels cannot hold (64-bit, or a stream wider than the target).
+
+There is no fallback from a device: a missing card or a failing kernel
+raises.
 """
 
 from __future__ import annotations
@@ -22,36 +27,120 @@ import os
 import numpy as np
 import torch
 
-from trpx_tpu.api import (
-    _DEVICE_CHUNK_FRAMES,
-    _DEVICE_KINDS,
-    _DEVICE_MIN_BYTES,
-    _as_stack,
-    _host_encode,
-    output_dtype,
-)
-from trpx_tpu import native
-from trpx_tpu.format import pycodec
-from trpx_tpu.format.pycodec import TrpxArchive
-from trpx_tpu.format.spec import DEFAULT_BLOCK
-from trpx_tpu.io.trpx import read_trpx, subset_frames
-from trpx_tpu.native import codec as ncodec
-
-from . import ops
+from . import native, ops
+from .format import pycodec
+from .format.header import TrpxMeta
+from .format.pycodec import TrpxArchive
+from .format.spec import DEFAULT_BLOCK
+from .io.trpx import read_trpx, subset_frames
+from .native import codec as ncodec
 
 __all__ = ["compress", "decompress", "output_dtype"]
 
+#: dtypes the kernels encode and decode
+_DEVICE_KINDS = {
+    np.dtype(np.uint8), np.dtype(np.uint16), np.dtype(np.uint32),
+    np.dtype(np.int8), np.dtype(np.int16), np.dtype(np.int32),
+}
 
-def _torch_device(device, auto_ok: bool) -> torch.device | None:
-    """The torch device a call runs on, or None for the host codec."""
-    if device is None:
-        return (torch.device("cuda")
-                if auto_ok and torch.cuda.is_available() else None)
+#: device decodes beyond this many frames stream through the chunked
+#: walk || unpack pipeline (runtime/stream.iter_decode) instead of one
+#: whole-archive call: host buffers stay O(chunk) and the serial header
+#: walk overlaps the device
+_DEVICE_CHUNK_FRAMES = 256
+
+
+def _torch_device(device) -> torch.device | None:
+    """The torch device a call runs on, or None for the host codec
+    (``device=False``). None and True mean ``"cuda"``; a CUDA device on a
+    machine without a card raises RuntimeError."""
     if device is False:
         return None
-    if device is True:
-        return torch.device("cuda")
-    return torch.device(device)
+    dev = torch.device("cuda" if device is None or device is True
+                       else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "trpx_tpu_torch runs on a CUDA card unless asked otherwise, and "
+            "this machine has none: pass device='cpu' for the kernels' "
+            "plain PyTorch versions or device=False for the native host "
+            "codec")
+    return dev
+
+
+def _route(device, kernel_ok: bool) -> torch.device | None:
+    """:func:`_torch_device`, except that ``device=None`` sends what no
+    kernel takes (``kernel_ok`` false) to the host codec."""
+    if device is None and not kernel_ok:
+        return None
+    return _torch_device(device)
+
+
+def _as_stack(frames) -> tuple[np.ndarray, tuple[int, ...]]:
+    """Normalize input to (F, n) plus the dimensions attribute tuple."""
+    frames = np.asarray(frames)
+    dims: tuple[int, ...] = ()
+    if frames.ndim == 1:
+        frames = frames[None]
+    elif frames.ndim == 2:
+        # a single image: dimensions = (width, height) (terse.cpp:70-71)
+        dims = (frames.shape[1], frames.shape[0])
+        frames = frames.reshape(1, -1)
+    elif frames.ndim == 3:
+        dims = (frames.shape[2], frames.shape[1])
+        frames = frames.reshape(frames.shape[0], -1)
+    else:
+        raise ValueError("frames must be 1-D, 2-D (one image) or 3-D (stack)")
+    if frames.shape[0] == 0 or frames.shape[1] == 0:
+        # match the normative codec (format/pycodec.py): a degenerate
+        # 0-frame/0-value archive is never valid TRPX
+        raise ValueError("no frames to encode")
+    return frames, dims
+
+
+def _host_encode(stack, block, dims) -> TrpxArchive:
+    if native.available():
+        return ncodec.encode(stack, block=block, dimensions=dims)
+    return pycodec.encode(list(stack), block=block, dimensions=dims)
+
+
+def output_dtype(meta: TrpxMeta) -> np.dtype:
+    """Output pixel dtype the way the prolix CLI picks it (prolix.cpp:69-92),
+    with bug B3 fixed (true 32-bit paths) and 64-bit supported."""
+    bits = meta.prolix_bits
+    if meta.signed:
+        if bits <= 16:
+            return np.dtype(np.int16)
+        if bits <= 32:
+            return np.dtype(np.int32)
+        return np.dtype(np.int64)
+    if bits <= 16:
+        return np.dtype(np.uint16)
+    if bits <= 32:
+        return np.dtype(np.uint32)
+    return np.dtype(np.uint64)
+
+
+def _decode_ok(meta: TrpxMeta, dtype: np.dtype) -> bool:
+    """True if the unpack kernels can decode the stream into ``dtype``."""
+    capacity = 8 * dtype.itemsize if dtype.kind in "iu" else 64
+    return (dtype in _DEVICE_KINDS
+            and meta.prolix_bits <= capacity + (1 if dtype.kind == "i" else 0))
+
+
+def _as_archive(archive) -> TrpxArchive:
+    """An archive of this package from itself, ``.trpx`` bytes, a path (read
+    with any ``.idx`` sidecar) or a file object."""
+    if isinstance(archive, TrpxArchive):
+        return archive
+    if isinstance(archive, (bytes, bytearray, memoryview)):
+        return TrpxArchive.from_bytes(bytes(archive))
+    if isinstance(archive, (str, os.PathLike)) or hasattr(archive, "read"):
+        return read_trpx(archive)
+    raise TypeError(
+        "expected a trpx_tpu_torch TrpxArchive, .trpx bytes, a path or a "
+        f"file object, got {type(archive).__module__}."
+        f"{type(archive).__name__} (an archive of another package crosses "
+        "as its to_bytes())")
 
 
 def compress(
@@ -75,8 +164,7 @@ def compress(
     stack, dims = _as_stack(frames)
     if dimensions is not None:
         dims = tuple(dimensions)
-    dev = _torch_device(device, stack.dtype in _DEVICE_KINDS
-                        and stack.nbytes >= _DEVICE_MIN_BYTES)
+    dev = _route(device, stack.dtype in _DEVICE_KINDS)
     if dev is None:
         return _host_encode(stack, block, dims)
     return ops.encode(stack, block=block, dimensions=dims, device=dev)
@@ -90,18 +178,15 @@ def decompress(
 ) -> np.ndarray:
     """Decode an archive to pixels.
 
-    ``archive`` may be a :class:`TrpxArchive`, the raw ``.trpx`` bytes, or
-    a filesystem path (read with any ``.idx`` sidecar). Returns (F, h, w)
-    when the header carries 2-D dimensions, else (F, n); single-frame
-    archives are squeezed to (h, w) / (n,). ``dtype`` defaults to
-    :func:`output_dtype` of the stream. ``frames`` selects a subset (an
-    int, slice or sequence of indices) at O(selected frames) cost.
-    ``device``: see the module docstring.
+    ``archive`` may be a :class:`TrpxArchive`, the raw ``.trpx`` bytes, a
+    filesystem path (read with any ``.idx`` sidecar) or a file object.
+    Returns (F, h, w) when the header carries 2-D dimensions, else (F, n);
+    single-frame archives are squeezed to (h, w) / (n,). ``dtype``
+    defaults to :func:`output_dtype` of the stream. ``frames`` selects a
+    subset (an int, slice or sequence of indices) at O(selected frames)
+    cost. ``device``: see the module docstring.
     """
-    if isinstance(archive, (str, os.PathLike)):
-        archive = read_trpx(archive)
-    if isinstance(archive, (bytes, bytearray, memoryview)):
-        archive = TrpxArchive.from_bytes(bytes(archive))
+    archive = _as_archive(archive)
     if frames is not None:
         archive = subset_frames(archive, frames)
     meta = archive.meta
@@ -111,14 +196,8 @@ def decompress(
             "signed streams must not be decoded into unsigned types "
             "(Terse.hpp:356-357)"
         )
-    capacity = 8 * dtype.itemsize if dtype.kind in "iu" else 64
-    device_ok = (
-        dtype in _DEVICE_KINDS
-        and meta.prolix_bits <= capacity + (1 if dtype.kind == "i" else 0)
-    )
-    raw_bytes = (meta.number_of_frames * meta.number_of_values
-                 * dtype.itemsize)
-    dev = _torch_device(device, device_ok and raw_bytes >= _DEVICE_MIN_BYTES)
+    device_ok = _decode_ok(meta, dtype)
+    dev = _route(device, device_ok)
     if dev is not None and not device_ok:
         raise ValueError(
             f"device decode unavailable for dtype {dtype} with "

@@ -1,82 +1,315 @@
-// TRPX decode kernel for Hopper (sm_90a).
+// TRPX decode kernels for Hopper (sm_90a).
 //
-// Replaces the TPU kernel trpx_tpu/ops/pallas_unpack.py:decode_batch_pallas
+// Replace the TPU kernel trpx_tpu/ops/pallas_unpack.py:decode_batch_pallas
 // (_kernel, untiled branch -> _decode_body). From each frame's stream words
-// and the per-block widths of the host header walk it rebuilds the header
-// bit counts with the repeat chain (from width 0 in every frame), takes an
-// exclusive prefix of the block bit lengths, and reads every value's
+// and the per-block widths of the host header walk they rebuild the header
+// bit counts with the repeat chain (from width 0 in every frame), take an
+// exclusive prefix of the block bit lengths, and read every value's
 // width-bit field LSB first: the two-word gather, shift and mask of
 // trpx_tpu/ops/coding.py:decode_frame_device. A 33-bit field keeps its low
 // 32 bits; fields are sign-extended iff the target is signed. The TPU
 // kernel's split tree and pair-packed output layout are Mosaic contracts
 // and are not carried over: the output is flat (F, n).
 //
-// Bound on the H100: bytes moved. A 512x512 uint16 frame reads its
-// compressed words (at most 0.56 MB) and 22 KB of widths and writes 0.5 MB
-// of uint16 pixels. The design makes the write, the largest stream,
-// coalesced: after the per-chunk scan each block's payload offset and
-// width sit in shared memory, and consecutive threads then extract
-// consecutive values, so a warp stores 64 contiguous bytes and its word
-// reads fall on neighbouring addresses that L1 serves.
+// Bound on the H100: bytes moved. 256 frames of 512x512 uint16 read 28.5 MB
+// of words and 5.6 MB of widths and write 134 MB of pixels, the largest
+// stream, against a few integer operations per value.
 //
-// Layout: one CTA per frame; per chunk of kThreads blocks, one block per
-// thread for the scan, then one value per thread for the extraction
-// (walk_unpack in common.cuh, shared with unpack_tiled.cu). Word reads are
-// clamped to the frame's row, so inconsistent tables cannot read outside
-// it.
-#include "common.cuh"
+// Design: each frame is cut into tiles of `tile_blocks` blocks.
+//   1. tile_offsets, one CTA per frame: each warp sums the bits of a tile
+//      from its widths (one byte per block, 3% of the bytes moved), then
+//      the CTA scans the tiles: the bit offset of every tile and the
+//      frame's total, (F, tiles + 1) int32.
+//   2. unpack_tiles, one CTA per (frame, tile): knowing its bit range from
+//      the table, it issues at once the loads of its widths and of its
+//      word range [P / 32, (P + bits) / 32 + 2) (16-byte loads into shared
+//      memory), scans the widths into block offsets, then extracts its
+//      values from shared memory, 16 bytes of output per thread and step
+//      (8 uint16 or 4 int32) stored with one vector store. The block size
+//      12 (DEFAULT_BLOCK) is a compile-time constant, so the value -> block
+//      division is one multiply; other block sizes take the generic
+//      instance of the same kernel.
+// Word reads are clamped to the frame's row, as in the plain version, so
+// inconsistent tables cannot read outside it; they are also clamped to
+// the words staged, which only widths wider than the target type (tables
+// that disagree with the header, which walk_archive never gives) can
+// reach: such fields read clamped words, never past the shared memory.
+#include "tile.cuh"
 
 namespace trpx {
 namespace {
 
+// 128 threads a CTA of unpack_tiles, at least 8 CTAs an SM (at most 64
+// registers a thread): on an H100 80GB HBM3 at 256 x 512x512 u16 this beat
+// 256- and 512-thread CTAs (PERF.md, section 6)
+constexpr int kNT = 128;
+constexpr int kMinCtas = 8;
+constexpr int kOffsetsThreads = 256;
+
+// Shared-memory carve-up of an unpack_tiles CTA: the staged words (room
+// for a tile of the widest fields of the target, the 16-byte phase and
+// the two-word window), the block payload offsets and the widths (with the
+// block before the tile first). ops/cuda_unpack.py:unpack_smem_bytes
+// computes the same numbers.
+struct UnpackSmem {
+  int words_cap, total;
+  __host__ __device__ UnpackSmem(int max_width, int block, int tile_blocks) {
+    const long long bits =
+        static_cast<long long>(tile_blocks) * (12 + block * max_width);
+    words_cap = int(((bits + 31) / 32 + 6 + 3) / 4 * 4);
+    total = 4 * words_cap + 4 * tile_blocks + (tile_blocks + 1 + 15) / 16 * 16;
+  }
+};
+
+// Bit offset of every tile of frame blockIdx.x and the frame's total bits
+// into ts[f * (tiles + 1) + ...].
+__global__ void __launch_bounds__(kOffsetsThreads)
+tile_offsets(const uint8_t* __restrict__ widths, int n, int block, int nb,
+             int tiles, int tile_blocks, int* __restrict__ ts) {
+  __shared__ int s_scan[kOffsetsThreads / 32 + 1];
+  const int f = blockIdx.x;
+  const uint8_t* wd = widths + size_t(f) * nb;
+  int* row = ts + size_t(f) * (tiles + 1);
+  const int lane = threadIdx.x & 31;
+  for (int t = threadIdx.x >> 5; t < tiles; t += kOffsetsThreads / 32) {
+    const int b1 = min((t + 1) * tile_blocks, nb);
+    int s = 0;
+    for (int b = t * tile_blocks + lane; b < b1; b += 32) {
+      const int w = wd[b];
+      s += header_bits(w, b ? int(wd[b - 1]) : 0) +
+           w * min(block, n - b * block);
+    }
+    s = __reduce_add_sync(0xffffffffu, s);
+    if (lane == 0) row[t] = s;
+  }
+  __syncthreads();
+  int run = 0;
+  for (int base = 0; base < tiles; base += kOffsetsThreads) {
+    const int t = base + threadIdx.x;
+    const int x = t < tiles ? row[t] : 0;
+    int total;
+    const int excl = cta_scan<kOffsetsThreads>(x, s_scan, total);
+    if (t < tiles) row[t] = run + excl;
+    run += total;
+  }
+  if (threadIdx.x == 0) row[tiles] = run;
+}
+
+// The staged words of a tile: words [lo, hi) of the row, word lo at
+// src[lo - origin].
+struct Staged {
+  const uint32_t* src;
+  int origin, lo, hi;
+};
+
+// The value at bit `off` of the frame: the two-word window at word
+// off / 32 of the row, clamped into the staged words.
 template <typename OutT, bool kSigned>
-__global__ void __launch_bounds__(kThreads)
-unpack_kernel(const uint32_t* __restrict__ words,
-              const uint8_t* __restrict__ widths, int W, int n, int block,
-              int nb, OutT* __restrict__ out) {
-  __shared__ int s_width[kThreads];
-  __shared__ int s_off[kThreads];
-  __shared__ int s_scan[kWarps + 1];
-  walk_unpack<OutT, kSigned>(words + size_t(blockIdx.x) * W, W,
-                             widths + size_t(blockIdx.x) * nb, n, block, 0,
-                             nb, 0, 0, out + size_t(blockIdx.x) * n, s_width,
-                             s_off, s_scan);
+__device__ __forceinline__ OutT field_at(const Staged& sw, int off, int w) {
+  const int idx = min(max(off >> 5, sw.lo), sw.hi - 2) - sw.origin;
+  const uint32_t* src = sw.src;
+  const uint64_t win = uint64_t(src[idx]) | (uint64_t(src[idx + 1]) << 32);
+  uint32_t u = uint32_t(win >> (off & 31));
+  if (w < 32) {
+    const uint32_t mask = (1u << w) - 1u;
+    u &= mask;
+    if (kSigned && w > 0 && ((u >> (w - 1)) & 1u)) u |= ~mask;
+  }
+  return static_cast<OutT>(u);
+}
+
+// Values [v0, v1) of the tile into the frame's output row `o`: the values
+// between the first and the last 16-byte boundary of the row in groups of
+// 16 bytes, each one vector store; the ragged ends one value at a time.
+// Value v is field j = v % B of block i = v / B - b0, at bit
+// P + s_off[i] + j * w of the frame.
+template <typename OutT, bool kSigned, int kB>
+__device__ __forceinline__ void extract_tile(
+    const Staged& sw, int P, int B, int b0, int v0, int v1, const int* s_off,
+    const uint8_t* s_w, OutT* __restrict__ o) {
+  constexpr int kV = 16 / int(sizeof(OutT));
+  const int BB = kB > 0 ? kB : B;
+  const int mis = int((reinterpret_cast<uintptr_t>(o + v0) & 15u) /
+                      sizeof(OutT));
+  const int a0 = min(v0 + (mis ? kV - mis : 0), v1);
+  const int groups = (v1 - a0) / kV;
+  const int a1 = a0 + groups * kV;
+  for (int g = threadIdx.x; g < groups; g += kNT) {
+    const int v = a0 + g * kV;
+    const int bq = v / BB;
+    int j = v - bq * BB;
+    int i = bq - b0;
+    int w = s_w[i + 1];
+    int off = P + s_off[i] + j * w;
+    union {
+      uint4 u;
+      OutT e[kV];
+    } pack;
+#pragma unroll
+    for (int q = 0; q < kV; ++q) {
+      pack.e[q] = field_at<OutT, kSigned>(sw, off, w);
+      off += w;
+      if (++j == BB && q + 1 < kV) {  // the next value opens a block
+        j = 0;
+        ++i;
+        w = s_w[i + 1];
+        off = P + s_off[i];
+      }
+    }
+    *reinterpret_cast<uint4*>(o + v) = pack.u;
+  }
+  for (int v = threadIdx.x; v < (a0 - v0) + (v1 - a1); v += kNT) {
+    const int vv = v < a0 - v0 ? v0 + v : a1 + (v - (a0 - v0));
+    const int bq = vv / BB;
+    const int i = bq - b0;
+    const int w = s_w[i + 1];
+    o[vv] = field_at<OutT, kSigned>(sw, P + s_off[i] + (vv - bq * BB) * w,
+                                    w);
+  }
+}
+
+template <typename OutT, bool kSigned, int kB>
+__global__ void __launch_bounds__(kNT, kMinCtas)
+unpack_tiles(const uint32_t* __restrict__ words,
+             const uint8_t* __restrict__ widths, int W, int n, int block_rt,
+             int nb, int tiles, int tile_blocks, int words_cap,
+             const int* __restrict__ ts, OutT* __restrict__ out) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  __shared__ int s_scan[kNT / 32 + 1];
+  const int B = kB > 0 ? kB : block_rt;
+  const int f = blockIdx.x / tiles;
+  const int t = blockIdx.x - f * tiles;
+  const int b0 = t * tile_blocks;
+  const int nblk = min(tile_blocks, nb - b0);
+  uint32_t* s_words = reinterpret_cast<uint32_t*>(smem);
+  int* s_off = reinterpret_cast<int*>(s_words + words_cap);
+  uint8_t* s_w = reinterpret_cast<uint8_t*>(s_off + tile_blocks);
+
+  // 1. the tile's bit range, then its widths (s_w[0]: the block before the
+  //    tile, 0 for the first) and words, loads all in flight together
+  const int P = ts[size_t(f) * (tiles + 1) + t];
+  const int total = ts[size_t(f) * (tiles + 1) + t + 1] - P;
+  const uint8_t* wd = widths + size_t(f) * nb;
+  for (int i = threadIdx.x; i <= nblk; i += kNT) {
+    const int b = b0 - 1 + i;
+    s_w[i] = b >= 0 ? wd[b] : 0;
+  }
+  // words [base, end): the tile's range and the window past its last
+  // bit, inside the row and inside the shared memory (stage_tile needs 3
+  // words of room for the 16-byte phase)
+  const uint32_t* row = words + size_t(f) * W;
+  const int base = max(min(P >> 5, W - 2), 0);
+  const int end = max(min(min(((P + total) >> 5) + 2, W),
+                          base + words_cap - 3), base + 2);
+  const int shift = stage_tile<kNT>(row, base, end, s_words);
+  __syncthreads();
+
+  // 2. each block's first payload bit in the tile
+  const int per = (nblk + kNT - 1) / kNT;
+  const int i0 = min(int(threadIdx.x) * per, nblk);
+  const int i1 = min(i0 + per, nblk);
+  int sum = 0;
+  for (int i = i0; i < i1; ++i) {
+    const int w = s_w[i + 1];
+    sum += header_bits(w, s_w[i]) + w * min(B, n - (b0 + i) * B);
+  }
+  int tile_total;
+  int run = cta_scan<kNT>(sum, s_scan, tile_total);
+  for (int i = i0; i < i1; ++i) {
+    const int w = s_w[i + 1];
+    const int hb = header_bits(w, s_w[i]);
+    s_off[i] = run + hb;
+    run += hb + w * min(B, n - (b0 + i) * B);
+  }
+  __syncthreads();
+
+  // 3. extract
+  const int v0 = b0 * B;
+  const int v1 = min((b0 + nblk) * B, n);
+  OutT* o = out + size_t(f) * n;
+  extract_tile<OutT, kSigned, kB>(Staged{s_words, base - shift, base, end},
+                                  P, B, b0, v0, v1, s_off, s_w, o);
+}
+
+template <typename OutT, bool kSigned, int kB>
+cudaError_t launch(const void* words, const void* widths, int F, int W,
+                   int n, int block, int nb, int tiles, int tile_blocks,
+                   const UnpackSmem& sm, int* ts, void* out, int device,
+                   cudaStream_t stream) {
+  auto kernel = unpack_tiles<OutT, kSigned, kB>;
+  // the attributes once per (device, shared-memory size): the launch is on
+  // every decode's hot path
+  static Residency cache;
+  int resident = 0;
+  cudaError_t err = cache.get(kernel, kNT, sm.total, device, resident);
+  if (err != cudaSuccess) return err;
+  const uint8_t* wd = static_cast<const uint8_t*>(widths);
+  tile_offsets<<<F, kOffsetsThreads, 0, stream>>>(wd, n, block, nb, tiles,
+                                                  tile_blocks, ts);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  kernel<<<unsigned(F) * unsigned(tiles), kNT, sm.total, stream>>>(
+      static_cast<const uint32_t*>(words), wd, W, n, block, nb, tiles,
+      tile_blocks, sm.words_cap, ts, static_cast<OutT*>(out));
+  return cudaGetLastError();
 }
 
 template <typename OutT, bool kSigned>
-void launch(const void* words, const void* widths, int F, int W, int n,
-            int block, int nb, void* out, cudaStream_t stream) {
-  unpack_kernel<OutT, kSigned><<<F, kThreads, 0, stream>>>(
-      static_cast<const uint32_t*>(words),
-      static_cast<const uint8_t*>(widths), W, n, block, nb,
-      static_cast<OutT*>(out));
+cudaError_t launch_block(const void* words, const void* widths, int F, int W,
+                         int n, int block, int nb, int tiles, int tile_blocks,
+                         const UnpackSmem& sm, int* ts, void* out,
+                         int device, cudaStream_t stream) {
+  if (block == 12) {  // DEFAULT_BLOCK: division by a constant
+    return launch<OutT, kSigned, 12>(words, widths, F, W, n, block, nb,
+                                     tiles, tile_blocks, sm, ts, out, device,
+                                     stream);
+  }
+  return launch<OutT, kSigned, 0>(words, widths, F, W, n, block, nb, tiles,
+                                  tile_blocks, sm, ts, out, device, stream);
 }
 
 }  // namespace
 }  // namespace trpx
 
-// Decodes F frames: `words` (F, W) uint32 streams with W >= 2 and at least
-// two words after each stream's last bit, `widths` (F, nb) uint8 block
-// widths, into `out` (F, n) of uint16 (out_u16, unsigned targets of at most
-// 16 bits) or int32. Sign-extends iff `is_signed`. Launches on `stream` of
-// device `device` and returns cudaGetLastError().
+// Decodes F frames in tiles of `tile_blocks` >= 32 blocks: `words` (F, W)
+// uint32 streams with W >= 2 and at least two words after each stream's
+// last bit, `widths` (F, nb) uint8 block widths, into `out` (F, n) of
+// uint16 (out_u16, unsigned targets of at most 16 bits) or int32.
+// Sign-extends iff `is_signed`. `max_width` is the target's widest field
+// (shared memory is sized for it). Scratch: `tile_start` (F, tiles + 1)
+// int32. `smem_bytes` must be the dynamic shared memory of an unpack_tiles
+// CTA (ops/cuda_unpack.py:unpack_smem_bytes). Launches on `stream` of
+// device `device` and returns the first CUDA error.
 extern "C" int trpx_unpack(const void* words, const void* widths, int F,
-                           int W, int n, int block, int is_signed,
-                           int out_u16, void* out, int device,
-                           void* stream) {
+                           int W, int n, int block, int tile_blocks,
+                           int max_width, int smem_bytes, int is_signed,
+                           int out_u16, void* out, void* tile_start,
+                           int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return int(err);
-  if (F <= 0 || n <= 0 || block <= 0 || W < 2 || (out_u16 && is_signed)) {
+  if (F <= 0 || n <= 0 || block <= 0 || W < 2 || tile_blocks < 32 ||
+      max_width <= 0 || (out_u16 && is_signed)) {
     return int(cudaErrorInvalidValue);
   }
-  const int nb = (n + block - 1) / block;
+  const int nb = (n - 1) / block + 1;
+  const int tiles = (nb - 1) / tile_blocks + 1;
+  if (int64_t(F) * tiles > (1 << 27)) return int(cudaErrorInvalidValue);
+  const trpx::UnpackSmem sm(max_width, block, tile_blocks);
+  if (sm.total != smem_bytes) return int(cudaErrorInvalidValue);
+  int* ts = static_cast<int*>(tile_start);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (out_u16) {
-    trpx::launch<uint16_t, false>(words, widths, F, W, n, block, nb, out, s);
+    err = trpx::launch_block<uint16_t, false>(words, widths, F, W, n, block,
+                                              nb, tiles, tile_blocks, sm, ts,
+                                              out, device, s);
   } else if (is_signed) {
-    trpx::launch<int32_t, true>(words, widths, F, W, n, block, nb, out, s);
+    err = trpx::launch_block<int32_t, true>(words, widths, F, W, n, block, nb,
+                                            tiles, tile_blocks, sm, ts, out,
+                                            device, s);
   } else {
-    trpx::launch<int32_t, false>(words, widths, F, W, n, block, nb, out, s);
+    err = trpx::launch_block<int32_t, false>(words, widths, F, W, n, block,
+                                             nb, tiles, tile_blocks, sm, ts,
+                                             out, device, s);
   }
-  return int(cudaGetLastError());
+  return int(err);
 }

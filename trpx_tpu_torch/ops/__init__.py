@@ -9,6 +9,7 @@ There is no fallback: a kernel that fails to build or launch raises.
 
 from .coding import (  # noqa: F401
     TILED_MAX_FRAMES,
+    TILED_MIN_BLOCKS,
     FrameSpec,
     InFlight,
     assemble_archive,

@@ -3,13 +3,17 @@
 The counterpart of ``trpx_tpu/ops/coding.py``. Encode pads a batch to the
 block grid, runs the pack kernel on the requested device and assembles a
 byte-exact ``.trpx`` archive on the host. Decode walks the archive's block
-headers on the host (the shared native walker, serial by nature), then
-runs the unpack kernel. A batch of fewer than ``TILED_MAX_FRAMES`` frames,
-each of more than one tile (``FrameSpec.tiled``), takes the tiled
-kernels (``cuda_pack.encode_batch_tiled``, ``cuda_unpack.decode_batch_tiled``),
-any other batch the one-CTA-per-frame kernels (``encode_batch``,
-``decode_batch``), where the JAX package routes by ``pallas_ok`` and
-``pallas_ok_decode``. Each kernel wrapper launches the CUDA kernel for
+headers on the host (the native walker, serial by nature), then runs the
+unpack kernel. Where the JAX package routes by ``pallas_ok`` and
+``pallas_ok_decode``, this one routes by what an H100 measured
+(``route_sweep``): every encode takes the one-pass pack
+(``cuda_pack.encode_batch``) unless its blocks are too large for the
+one-pass kernel's shared memory (``FrameSpec.tiled_pack``), which the
+tiled pack (``encode_batch_tiled``) has no limit on; a decode of fewer
+than ``TILED_MAX_FRAMES`` frames of at least ``TILED_MIN_BLOCKS`` blocks
+each takes the tiled unpack (``cuda_unpack.decode_batch_tiled``), as do
+blocks the one-pass unpack cannot tile (``FrameSpec.tiled``), any other
+the one-pass unpack (``decode_batch``). Each kernel wrapper launches the CUDA kernel for
 CUDA tensors and runs its plain PyTorch version for CPU tensors.
 
 Each layer of ``encode`` and ``decode`` runs in a ``record_function``
@@ -27,10 +31,11 @@ host work. ``encode`` and ``decode`` run one after the other; the stream
 (``runtime.stream``) dispatches chunk k on a side CUDA stream before it
 collects chunk k-1.
 
-The format, the archive object and the host walker are the shared
-``trpx_tpu.format`` and ``trpx_tpu.native`` layers, never copies of them.
-What the JAX package sizes for TPU memory (capacity schedules, merge-tree
-rows, staging widths) has no counterpart here.
+The format, the archive object and the host walker are the port's own
+``format`` and ``native`` packages, copies of the JAX package's that
+``tests/test_torch_format.py`` holds to the same bytes. What the JAX
+package sizes for TPU memory (capacity schedules, merge-tree rows, staging
+widths) has no counterpart here.
 """
 
 from __future__ import annotations
@@ -42,15 +47,23 @@ import numpy as np
 import torch
 from torch.profiler import record_function
 
-from trpx_tpu import native
-from trpx_tpu.format import pycodec
-from trpx_tpu.format.header import TrpxMeta
-from trpx_tpu.format.pycodec import TrpxArchive, walk_frame
-from trpx_tpu.format.spec import DEFAULT_BLOCK, frame_nbytes
-from trpx_tpu.native import codec as ncodec
-
-from .cuda_pack import TILE_BLOCKS, encode_batch, encode_batch_tiled
-from .cuda_unpack import decode_batch, decode_batch_tiled, decoded_dtype
+from .. import native
+from ..format import pycodec
+from ..format.header import TrpxMeta
+from ..format.pycodec import TrpxArchive, walk_frame
+from ..format.spec import DEFAULT_BLOCK, frame_nbytes
+from ..native import codec as ncodec
+from .cuda_pack import (
+    encode_batch,
+    encode_batch_tiled,
+    pack_geometry,
+)
+from .cuda_unpack import (
+    decode_batch,
+    decode_batch_tiled,
+    decoded_dtype,
+    unpack_geometry,
+)
 
 #: device dtypes -> (signed, widest field incl. sign bit, torch dtype)
 _DEVICE_DTYPES = {
@@ -62,13 +75,30 @@ _DEVICE_DTYPES = {
     np.dtype(np.int32): (True, 33, torch.int32),
 }
 
-#: batches of fewer frames than this take the tiled kernels when each frame
-#: spans more than one tile: the untiled kernels run one CTA per frame and
-#: leave an H100's 132 SMs underused below this (2048x2048 u32 x 32: pack
-#: 2.06 ms untiled, 0.74 tiled), while from here on the tiled pack's
-#: second read of the pixels costs more than its balance buys (512x512
-#: u16 x 256: pack 0.250 ms untiled, 0.312 tiled; PERF.md, section 6)
-TILED_MAX_FRAMES = 192
+#: decodes of fewer frames than TILED_MAX_FRAMES, each of at least
+#: TILED_MIN_BLOCKS blocks, take the tiled unpack. The one-pass unpack's
+#: offset pass runs one CTA per frame over the frame's widths, so it lags
+#: by a time that grows with the blocks of a frame, until enough frames
+#: share the card. Device times on an H100 80GB HBM3 (route_sweep, PERF.md
+#: section 6): at 2048x2048 and 4096x4096 u32 (349,526 and 1,398,102
+#: blocks) the tiled unpack won at 1-24 frames and lost from 32 on
+#: (2048x2048 x 24: 0.320 against 0.333 ms, x 32: 0.432 against 0.390); at
+#: 1024x1024 u16 (87,382 blocks) it lost at 1-16 frames and tied at 24, at
+#: 512x512 u16 at every count. Between 87,382 and 349,526 blocks, and
+#: between 24 and 32 frames, nothing was measured. The one-pass pack won
+#: at every size and count, so encodes do not route by frames
+TILED_MAX_FRAMES = 32
+TILED_MIN_BLOCKS = -(-2048 * 2048 // DEFAULT_BLOCK)  # a 2048x2048 frame
+
+
+def _fits(geometry, spec) -> bool:
+    """True if a one-pass kernel can tile ``spec``'s blocks (its
+    ``geometry`` does not raise)."""
+    try:
+        geometry(spec)
+    except ValueError:
+        return False
+    return True
 
 
 @dataclass(frozen=True)
@@ -102,9 +132,19 @@ class FrameSpec:
         return 12 + self.block * self.max_width
 
     def tiled(self, frames: int) -> bool:
-        """True if a batch of `frames` such frames takes the tiled
-        kernels."""
-        return self.nb > TILE_BLOCKS and frames < TILED_MAX_FRAMES
+        """True if a decode of `frames` such frames takes the tiled
+        unpack: fewer than ``TILED_MAX_FRAMES`` frames of at least
+        ``TILED_MIN_BLOCKS`` blocks, or blocks too large for the one-pass
+        unpack."""
+        return ((self.nb >= TILED_MIN_BLOCKS and frames < TILED_MAX_FRAMES)
+                or not _fits(unpack_geometry, self))
+
+    @property
+    def tiled_pack(self) -> bool:
+        """True if an encode takes the tiled pack: blocks too large for a
+        32-block tile of the one-pass pack in shared memory (hundreds of
+        32-bit values)."""
+        return not _fits(pack_geometry, self)
 
     @property
     def torch_dtype(self) -> torch.dtype:
@@ -219,11 +259,11 @@ def encode_dispatch(spec: FrameSpec, x: torch.Tensor,
                     pin: bool = False) -> InFlight:
     """Launch the pack kernel of the padded (F, n_padded) batch ``x`` on
     the current stream of its device (``encode_batch_tiled`` when
-    ``spec.tiled(F)``, else ``encode_batch``) and start copying the frame
+    ``spec.tiled_pack``, else ``encode_batch``) and start copying the frame
     bit counts and widths back (into pinned memory when ``pin``). Returns
     without waiting for the device."""
     with record_function("trpx.encode.kernel"):
-        words, bits, maxw = (encode_batch_tiled if spec.tiled(len(x))
+        words, bits, maxw = (encode_batch_tiled if spec.tiled_pack
                              else encode_batch)(spec, x)
     with record_function("trpx.encode.d2h"):
         host = (_host_copy(bits, pin), _host_copy(maxw, pin))

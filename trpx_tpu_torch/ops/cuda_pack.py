@@ -1,15 +1,21 @@
 """TRPX encode of a frame batch: the pack kernels' wrappers and their
 plain PyTorch versions.
 
-``encode_batch`` launches the CUDA kernel ``csrc/pack.cu`` (one CTA per
-frame) and ``encode_batch_tiled`` the kernels ``csrc/pack_tiled.cu`` (one
-CTA per frame and tile of ``tile_blocks`` blocks, for big frames) for a
-CUDA tensor; for a CPU tensor each runs its plain version
-(``encode_batch_plain``, ``encode_batch_tiled_plain``). All return
-``(words, bits, maxw)``: ``words`` (F, n_words) int32 holding the uint32
-stream words, zero past each frame's bits; ``bits`` and ``maxw`` (F,)
-int32, each frame's total bit count and largest block width. The stream
-does not depend on the tile size.
+``encode_batch`` launches the CUDA kernel ``csrc/pack.cu`` (one pass, one
+CTA per tile of :func:`pack_geometry` blocks, tiles chained by a
+decoupled look-back) and ``encode_batch_tiled`` the kernels
+``csrc/pack_tiled.cu`` (two launches, one CTA per frame and tile of
+``tile_blocks`` blocks, for big frames) for a CUDA tensor; for a CPU tensor
+each runs its plain version (``encode_batch_plain``,
+``encode_batch_tiled_plain``). All return ``(words, bits, maxw)``:
+``words`` (F, n_words) int32 holding the uint32 stream words, ``bits`` and
+``maxw`` (F,) int32, each frame's total bit count and largest block width.
+Words ``[0, bits // 32]`` of each frame (:func:`defined_words`) hold its
+stream, zero above its last bit; that is all ``encode_collect`` and
+``assemble_archive`` read. ``encode_batch`` leaves the words after them
+undefined (it writes every word of that prefix exactly once and needs no
+zero-fill); the plain versions and the tiled kernels leave them zero. The
+stream does not depend on the tile size.
 
 The plain version computes the plan of ``trpx_tpu/ops/coding.py:plan_frame``
 (block widths, header bits and values, the exclusive prefix of block bits)
@@ -22,6 +28,7 @@ to their int32 bit patterns at the end.
 
 from __future__ import annotations
 
+import functools
 import operator
 
 import torch
@@ -57,6 +64,87 @@ def _bit_length(x: torch.Tensor) -> torch.Tensor:
 #: H100's 132 SMs for a 2048x2048 u32 batch of 32 frames (1,376 tiles) or
 #: a 4096x4096 batch of 8 (1,368)
 TILE_BLOCKS = 8192
+
+#: dynamic shared memory a CTA may take on an H100: 232,448 bytes less room
+#: for the one-pass kernels' static shared memory (csrc/tile.cuh)
+SMEM_LIMIT = 232448 - 1024
+#: shared memory of a CTA under which the pack picks its tile: five CTAs of
+#: 256 threads then share an SM's 228 KB
+PACK_SMEM_TARGET = 44 * 1024
+#: fewest blocks in a tile of the one-pass kernels: every block has a
+#: header bit, so the 32 bits before a tile belong to the tile before it
+MIN_TILE_BLOCKS = 32
+
+
+def _round_up(x: int, m: int) -> int:
+    return -(-x // m) * m
+
+
+def pack_smem_bytes(itemsize: int, max_width: int, block: int,
+                    tile_blocks: int) -> int:
+    """Dynamic shared memory of a ``csrc/pack.cu`` CTA (its ``PackSmem``):
+    the tile's values and the block before it (16-byte rounded, with room
+    for the 16-byte phase), the worst-case stream of the tile in words (+4,
+    rounded to 4), an int offset per block and a byte width per block and
+    the one before (rounded to 16)."""
+    vals = _round_up(((tile_blocks + 1) * block + 16 // itemsize)
+                     * itemsize, 16)
+    out_words = _round_up(
+        -(-tile_blocks * (12 + block * max_width) // 32) + 4, 4)
+    return (vals + 4 * out_words + 4 * tile_blocks
+            + _round_up(tile_blocks + 1, 16))
+
+
+def choose_tile(spec, default: int, smem, target: int) -> tuple[int, int]:
+    """(tile_blocks, shared-memory bytes) of a one-pass kernel: ``default``
+    blocks (at least ``MIN_TILE_BLOCKS``, at most what the frame has),
+    less 32 at a time while ``smem(tile_blocks)`` exceeds ``target``.
+    Raises ValueError when even the smallest tile exceeds ``SMEM_LIMIT``
+    (blocks of hundreds of values)."""
+    tb = max(MIN_TILE_BLOCKS, min(default, spec.nb))
+    while tb > MIN_TILE_BLOCKS and smem(tb) > target:
+        tb = max(MIN_TILE_BLOCKS, tb - 32)
+    if smem(tb) > SMEM_LIMIT:
+        raise ValueError(
+            f"block of {spec.block} values too large for the one-pass "
+            f"kernels: a {tb}-block tile needs {smem(tb)} bytes of shared "
+            f"memory, more than {SMEM_LIMIT}")
+    return tb, smem(tb)
+
+
+@functools.lru_cache(maxsize=64)
+def pack_geometry(spec) -> tuple[int, int]:
+    """(tile_blocks, shared-memory bytes) of ``csrc/pack.cu`` for ``spec``:
+    the most blocks, up to 1,024, whose CTA takes at most
+    ``PACK_SMEM_TARGET`` of shared memory (at 12-value blocks 1,024 for
+    8-bit values, 800 for 16-bit and 416 for 32-bit ones)."""
+    itemsize = spec.torch_dtype.itemsize
+    return choose_tile(
+        spec, 1024,
+        lambda tb: pack_smem_bytes(itemsize, spec.max_width, spec.block, tb),
+        PACK_SMEM_TARGET)
+
+
+def pack_scratch_ints(frames: int, tiles: int) -> int:
+    """int32 words of ``csrc/pack.cu``'s zeroed scratch: the ticket (and a
+    pad word), two uint64 descriptors per (frame, tile), then the frames'
+    largest widths."""
+    return 2 + 4 * frames * tiles + frames
+
+
+def defined_words(bits: torch.Tensor) -> torch.Tensor:
+    """Words of each frame's stream that a pack defines: ``bits // 32 + 1``
+    (the last holds the terminal zero byte when ``bits`` is a multiple of
+    8)."""
+    return (bits.to(torch.int64) >> 5) + 1
+
+
+def stream_words(words: torch.Tensor, bits: torch.Tensor) -> torch.Tensor:
+    """``words`` with every word past :func:`defined_words` of its frame
+    set to 0: what two packs of the same frames agree on."""
+    col = torch.arange(words.shape[1], device=words.device)
+    keep = col[None, :] < defined_words(bits).to(words.device)[:, None]
+    return torch.where(keep, words, torch.zeros_like(words))
 
 
 def header_codes(width: torch.Tensor, prev0: torch.Tensor | None = None):
@@ -236,26 +324,31 @@ def check_tile_blocks(spec, tile_blocks) -> int:
 def encode_batch(spec, frames: torch.Tensor):
     """Encode a (F, n_padded) batch: the CUDA pack kernel for a CUDA
     tensor, :func:`encode_batch_plain` for a CPU tensor. Padding values
-    must be zero. Counts kernel launches in ``encode_batch.launches``."""
+    must be zero. Only :func:`defined_words` of each frame's words are
+    defined. Counts kernel launches in ``encode_batch.launches``."""
     _check(spec, frames)
     if frames.device.type == "cpu":
         return encode_batch_plain(spec, frames)
     if frames.device.type != "cuda":
         raise ValueError(f"no pack kernel for device {frames.device}")
+    tile_blocks, smem = pack_geometry(spec)
     lib = _build.load()
     F = frames.shape[0]
     dev = frames.device
-    words = torch.zeros((F, spec.n_words), dtype=torch.int32, device=dev)
+    T = -(-spec.nb // tile_blocks)
+    words = torch.empty((F, spec.n_words), dtype=torch.int32, device=dev)
     bits = torch.empty((F,), dtype=torch.int32, device=dev)
-    maxw = torch.empty((F,), dtype=torch.int32, device=dev)
+    # ticket, tile descriptors and the frames' largest widths, all zero
+    scratch = torch.zeros((pack_scratch_ints(F, T),), dtype=torch.int32,
+                          device=dev)
     rc = lib.trpx_pack(
         frames.data_ptr(), frames.element_size(), int(spec.signed), F,
-        spec.n, spec.n_padded, spec.block, spec.n_words, words.data_ptr(),
-        bits.data_ptr(), maxw.data_ptr(), dev.index,
+        spec.n, spec.n_padded, spec.block, spec.n_words, tile_blocks, smem,
+        words.data_ptr(), bits.data_ptr(), scratch.data_ptr(), dev.index,
         torch.cuda.current_stream(dev).cuda_stream)
     _build.check(rc, "pack")
     encode_batch.launches += 1
-    return words, bits, maxw
+    return words, bits, scratch[-F:]
 
 
 encode_batch.launches = 0

@@ -1,10 +1,12 @@
 """TRPX decode of a frame batch: the unpack kernels' wrappers and their
 plain PyTorch versions.
 
-``decode_batch`` launches the CUDA kernel ``csrc/unpack.cu`` (one CTA per
-frame) and ``decode_batch_tiled`` the kernels ``csrc/unpack_tiled.cu``
-(one CTA per frame and tile of ``tile_blocks`` blocks, for big frames) for
-CUDA tensors; for CPU tensors each runs its plain version
+``decode_batch`` launches the CUDA kernels of ``csrc/unpack.cu`` (each
+tile's bit offset from the widths, then one CTA per tile of
+:func:`unpack_geometry` blocks) and ``decode_batch_tiled`` the kernels
+``csrc/unpack_tiled.cu`` (one CTA per frame and tile of ``tile_blocks``
+blocks, for big frames) for CUDA tensors; for CPU tensors each runs its
+plain version
 (``decode_batch_plain``, ``decode_batch_tiled_plain``). Inputs are the
 host walk's outputs: ``words`` (F, W) int32 holding each frame's uint32
 stream words (at least two words past each stream's last bit) and
@@ -23,13 +25,17 @@ uint32 shifts).
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from .. import _build
 from .cuda_pack import (
     TILE_BLOCKS,
+    _round_up,
     block_counts,
     check_tile_blocks,
+    choose_tile,
     header_codes,
     tiled_plan,
 )
@@ -40,6 +46,33 @@ def decoded_dtype(spec) -> torch.dtype:
     if not spec.signed and spec.max_width <= 16:
         return torch.uint16
     return torch.int32
+
+
+#: shared memory of an unpack_tiles CTA under which its tile is chosen
+UNPACK_SMEM_TARGET = 32 * 1024
+
+
+def unpack_smem_bytes(max_width: int, block: int, tile_blocks: int) -> int:
+    """Dynamic shared memory of a ``csrc/unpack.cu`` CTA (its
+    ``UnpackSmem``): the words of a tile of the widest fields of the target
+    (+6 for the 16-byte phase and the two-word window, rounded to 4), an
+    int offset per block and a byte width per block and the one before
+    (rounded to 16)."""
+    cap = _round_up(-(-tile_blocks * (12 + block * max_width) // 32) + 6, 4)
+    return 4 * cap + 4 * tile_blocks + _round_up(tile_blocks + 1, 16)
+
+
+@functools.lru_cache(maxsize=64)
+def unpack_geometry(spec) -> tuple[int, int]:
+    """(tile_blocks, shared-memory bytes) of ``csrc/unpack.cu`` for the
+    target ``spec``: tiles of 1,024 blocks for targets of at most 17-bit
+    fields and 512 for 32-bit ones (about 31 KB of shared memory at
+    12-value blocks, so that 7 CTAs of 128 threads share an SM), fewer for
+    larger blocks."""
+    return choose_tile(
+        spec, 1024 if spec.max_width <= 17 else 512,
+        lambda tb: unpack_smem_bytes(spec.max_width, spec.block, tb),
+        UNPACK_SMEM_TARGET)
 
 
 def _extract(spec, words: torch.Tensor, w: torch.Tensor,
@@ -125,13 +158,18 @@ def decode_batch(spec, words: torch.Tensor, widths: torch.Tensor,
         return decode_batch_plain(spec, words, widths, out_dtype)
     if words.device.type != "cuda":
         raise ValueError(f"no unpack kernel for device {words.device}")
+    tile_blocks, smem = unpack_geometry(spec)
     lib = _build.load()
     F, W = words.shape
     dev = words.device
     out = torch.empty((F, spec.n), dtype=out_dtype, device=dev)
+    # scratch: each tile's bit offset and each frame's total
+    tile_start = torch.empty((F, -(-spec.nb // tile_blocks) + 1),
+                             dtype=torch.int32, device=dev)
     rc = lib.trpx_unpack(
         words.data_ptr(), widths.data_ptr(), F, W, spec.n, spec.block,
-        int(spec.signed), int(out_dtype == torch.uint16), out.data_ptr(),
+        tile_blocks, spec.max_width, smem, int(spec.signed),
+        int(out_dtype == torch.uint16), out.data_ptr(), tile_start.data_ptr(),
         dev.index, torch.cuda.current_stream(dev).cuda_stream)
     _build.check(rc, "unpack")
     decode_batch.launches += 1

@@ -6,7 +6,9 @@ report reads the same from either package: frames/s, GB/s of raw data
 against the card's HBM peak, compression ratio and scaling efficiency.
 ``HBM_GBS`` keeps the TPU rows and adds the card this port runs on, keyed
 by ``torch.cuda.get_device_name()``. ``profiler_trace`` is a
-``torch.profiler`` window in place of ``jax.profiler``.
+``torch.profiler`` window in place of ``jax.profiler``. ``event_ms`` and
+``device_ms`` time a call on the card: CUDA events around a loop of
+calls, with and without the host's share.
 """
 
 from __future__ import annotations
@@ -151,3 +153,50 @@ def profiler_trace(log_dir: str | None):
         yield
     Path(log_dir).mkdir(parents=True, exist_ok=True)
     prof.export_chrome_trace(str(Path(log_dir) / "trace.json"))
+
+
+def event_ms(fn, iters: int) -> float:
+    """Milliseconds per call of `fn` on the card: CUDA events around a
+    loop of `iters` calls after a warm one (host work that outlasts the
+    kernels included)."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def device_ms(fn, iters: int) -> float:
+    """Device milliseconds per call of `fn`: CUDA events around `iters`
+    calls (after a warm one) that the host queues behind a sleeping
+    kernel, so the card runs them back to back and the host's share,
+    which a loop of calls shorter than their host work would otherwise
+    time, stays hidden. The sleep grows until it outlasts the host's
+    queueing; `fn` must not wait for the card."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    marks = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+    cycles = 1 << 24
+    for _ in range(5):
+        marks[0].record()
+        torch.cuda._sleep(cycles)
+        t0 = time.perf_counter()
+        marks[1].record()
+        for _ in range(iters):
+            fn()
+        marks[2].record()
+        queued_ms = (time.perf_counter() - t0) * 1e3
+        torch.cuda.synchronize()
+        if queued_ms < 0.8 * marks[0].elapsed_time(marks[1]):
+            return marks[1].elapsed_time(marks[2]) / iters
+        cycles *= 4
+    raise RuntimeError("the calls kept the host longer than the card slept")

@@ -36,13 +36,12 @@ import numpy as np
 import torch
 from torch.profiler import record_function
 
-from trpx_tpu import native
-from trpx_tpu.format.header import TrpxMeta, emit_header
-from trpx_tpu.format.pycodec import TrpxArchive
-from trpx_tpu.format.spec import DEFAULT_BLOCK, frame_nbytes
-from trpx_tpu.io.trpx import read_trpx, write_index
-
 from .. import api as _api
+from .. import native
+from ..format.header import TrpxMeta, emit_header
+from ..format.pycodec import TrpxArchive
+from ..format.spec import DEFAULT_BLOCK, frame_nbytes
+from ..io.trpx import write_index
 from ..ops.coding import (
     FrameSpec,
     _on,
@@ -251,7 +250,7 @@ class StreamingEncoder:
                 frames, self.block, self.dtype.kind == "i")
             sizes = np.diff(fstarts)
         else:
-            from trpx_tpu.format import pycodec
+            from ..format import pycodec
 
             arch = pycodec.encode(list(frames), block=self.block)
             payload = arch.payload
@@ -377,7 +376,7 @@ class StreamingEncoder:
                 want_poffs=False, max_width=meta.prolix_bits,
             )
             return w.astype(np.uint8)
-        from trpx_tpu.format.pycodec import walk_frame
+        from ..format.pycodec import walk_frame
 
         with open(tmp, "rb") as f:
             f.seek(header_len)
@@ -405,11 +404,13 @@ def iter_decode(archive, dtype, chunk_frames: int = 256, device=None,
     """Decode an archive (or a path, read with its sidecar) in chunks of
     ``chunk_frames`` frames: yields (nf, n) arrays of ``dtype``.
 
-    ``device``: as ``api.decompress`` takes it. None decodes on CUDA when
-    a card is present, else on the host; False forces chunked host decode
-    (the native codec, one ``api.decompress`` per chunk); True means
-    ``"cuda"``; a torch device or its name runs the pipeline there
-    (``"cpu"`` with the kernels' plain versions).
+    ``archive``: an archive of this package, ``.trpx`` bytes, a path (read
+    with its sidecar) or a file object. ``device``: as ``api.decompress``
+    takes it. None and True mean ``"cuda"`` and raise without a card; a
+    torch device or its name runs the pipeline there (``"cpu"`` with the
+    kernels' plain versions); False decodes chunk by chunk with the native
+    codec (one ``api.decompress`` per chunk), as does None for a target
+    the kernels cannot hold.
 
     Pipelined: chunk k+1 is walked (the native header walk, or sidecar
     tables proven with ``validate_tables``), gathered into a word buffer
@@ -426,13 +427,12 @@ def iter_decode(archive, dtype, chunk_frames: int = 256, device=None,
     package pads the last chunk to ``chunk_frames`` rows; here no rows
     past ``nf`` exist, so slicing ``out[:nf]`` means the same in both.
     """
-    if not isinstance(archive, TrpxArchive):
-        archive = read_trpx(archive)
+    archive = _api._as_archive(archive)
     dtype = np.dtype(dtype)
     meta = archive.meta
     F, n = meta.number_of_frames, meta.number_of_values
     C = min(chunk_frames, F)
-    dev = _api._torch_device(device, True)
+    dev = _api._route(device, _api._decode_ok(meta, dtype))
     if dev is None:
         if not fetch:
             raise ValueError("fetch=False requires the device pipeline "
