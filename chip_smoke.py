@@ -8,10 +8,9 @@ card): 256 seeded 512x512 uint16 diffraction-like frames (Poisson(3) with
 hot pixels at 65535) through the one-pass CUDA pack and unpack kernels,
 and big frames, 32 of 2048x2048 and 8 of 4096x4096 uint32 (Poisson(3)
 with 200 hot pixels per frame at 2,000,000,000, the 2K/4K u32 batches of
-``bench.py``), through the one-pass pack and, for the 8 frames, the tiled
-unpack; 4 frames of 2048x2048 int32 in blocks of 1,024 values through the
-tiled pack and the one-pass unpack. Phases, one line each (more for
-phases 5 and 6):
+``bench.py``), through the one-pass pack and the tiled unpack; 4 frames
+of 2048x2048 int32 in blocks of 1,024 values through the tiled pack and
+the tiled unpack. Phases, one line each (more for phases 5 and 6):
 
 1. the card (``nvidia-smi`` name and power limit), torch and CUDA versions;
 2. the kernels' build from ``trpx_tpu_torch/csrc`` (seconds);
@@ -21,10 +20,14 @@ phases 5 and 6):
    at the 512x512 path's shape, on an all-zero frame, partial blocks,
    every other device dtype, every dtype at its worst case (all values at
    the dtype's extreme) and frames whose tile edges fall on a width change
-   and on a repeated width; the tiled kernels at 64-block tiles on every
-   device dtype (partial last tile and block, a constant frame, a zero
-   first tile, the widest field at a tile's first and last value) and at
-   the default tile size on 4 frames of 2048x2048 u32;
+   and on a repeated width; the tiled kernels (whose packs define the same
+   words) at 64-block tiles on every device dtype (partial last tile and
+   block, a constant frame, a zero first tile, the widest field at a
+   tile's first and last value), and at their default tiles on 4 frames
+   of 2048x2048 u32, on blocks larger than a tile (one-block tiles walked
+   in chunks; the widest field at a chunk's edge, a zero block, a partial
+   block) and on tiles of fewer than 32 bits (all-zero blocks of 1,024
+   values, many tiles to a word);
 4. the 512x512 path: archive bytes equal the native host codec's, pixels
    round-trip exactly, a natively encoded ("foreign") archive decodes to
    the same pixels; the one-pass kernels' launch counters moved and the
@@ -43,9 +46,10 @@ phases 5 and 6):
    (``runtime.metrics.device_ms``: calls queued behind a sleeping kernel,
    its fills included), the CUDA-event time of a loop of calls and its
    plain version's time, beside its bound (the bytes it
-   must move over 3.35 TB/s); then the other routes at the 512x512 and
-   big shapes (32 x 2048x2048 u32 was the tiled kernels' route before
-   the one-pass kernels took it);
+   must move over 3.35 TB/s), and the tiled kernels' three launches each
+   from ``torch.profiler``; then the other routes at the 512x512 and
+   big shapes (the tiled pack at 32 x 2048x2048 u32 beside the one-pass
+   pack that the route gives that batch);
 7. the stream path (``trpx_tpu_torch.runtime``), each step with the
    launch counters set to 0 just before and read just after:
    (a) ``StreamingEncoder`` on the card over 1,024 x 512x512 u16 in
@@ -55,9 +59,9 @@ phases 5 and 6):
    (c) ``iter_decode(fetch=False)`` chunks on the card equal to the
    frames; (d) 64 x 2048x2048 u32 through ``StreamingEncoder`` (with the
    resume drill) and ``iter_decode`` in 32-frame chunks, on the one-pass
-   kernels; (e) ``Terse`` on the card: three ``push_back``s, ``write``,
-   ``from_stream``, ``prolix`` of the first, a middle and the last frame
-   (the one-pass kernels).
+   pack and the tiled unpack; (e) ``Terse`` on the card: three
+   ``push_back``s, ``write``, ``from_stream``, ``prolix`` of the first, a
+   middle and the last frame (the one-pass pack, the tiled unpack).
    (a), (b) and (d) print host-clock frames/s beside the synchronous path
    over the same chunks.
 
@@ -92,6 +96,9 @@ HOT_U32 = 2_000_000_000
 #: for a tile of the one-pass pack, so it takes the tiled pack
 WIDE_BLOCK = 1024
 SMALL_TILE = 64
+#: values per block larger than a tile of the tiled kernels (their
+#: TILE_VALUES, 8,192)
+BIG_BLOCK = 9000
 #: (frames, side, chunk frames) of the stream phase: 1,024 x 512x512 u16
 #: in 256-frame chunks, 64 x 2048x2048 u32 in 32-frame chunks (both on the
 #: one-pass kernels)
@@ -165,6 +172,42 @@ def _one_pass_edge_frames(rng, dtype):
     fr[0, 2 * edge - 12 : 2 * edge] = 0
     fr[1, :] = 5
     return fr
+
+
+def _big_block_frames(rng, dtype):
+    """Three frames in blocks of ``BIG_BLOCK`` values (one-block tiles of
+    the tiled kernels, walked in chunks of 8,192 values): the widest field
+    on both sides of the first chunk edge, a zero block, a partial last
+    block."""
+    n = 3 * BIG_BLOCK + 17
+    info = np.iinfo(dtype)
+    fr = _signed_frames(rng, 3, n, dtype) if info.min < 0 \
+        else _frames(rng, 3, n, dtype, hot=5)
+    widest = info.min if info.min < 0 else info.max
+    fr[0, 8191:8193] = widest
+    fr[1, BIG_BLOCK : 2 * BIG_BLOCK] = 0
+    fr[2, -1] = widest
+    return fr
+
+
+def _sparse_frames(rng, dtype):
+    """Three frames of 200 blocks of ``WIDE_BLOCK`` values, mostly zero:
+    tiles of all-zero blocks hold a few header bits, so many tiles share a
+    word; a lone value, a one-bit block and a run of data between them."""
+    block = WIDE_BLOCK
+    n = 200 * block + 100
+    fr = np.zeros((3, n), dtype)
+    fr[0, 5 * block + 3] = 7
+    fr[1, -1] = np.iinfo(dtype).max
+    fr[2, 17 * block : 18 * block] = 1
+    fr[2, 100 * block :] = _frames(rng, 1, n - 100 * block, dtype, hot=3)[0]
+    return fr
+
+
+def _route(spec, frames: int) -> tuple:
+    """The pack and the unpack a batch of `frames` such frames takes."""
+    return ("pack_tiled" if spec.tiled_pack(frames) else "pack",
+            "unpack_tiled" if spec.tiled(frames) else "unpack")
 
 
 def _bound_ms(nbytes: int) -> float:
@@ -415,7 +458,8 @@ def _stream_phase(rng, dev, card: str, workdir: Path) -> dict:
     layers = {f"{side}x{side} u16": _stream_layers(flat, (side, side), C,
                                                     dev, workdir)}
     del stack, flat, want, arch
-    # (d) 2048x2048 u32, 32-frame chunks
+    # (d) 2048x2048 u32, 32-frame chunks: the one-pass pack, the tiled
+    # unpack
     F, side, C = STREAM_BIG
     stack = _frames(rng, F, side * side, np.uint32,
                     hot_value=HOT_U32).reshape(F, side, side)
@@ -437,8 +481,8 @@ def _stream_phase(rng, dev, card: str, workdir: Path) -> dict:
         back = _consume(iter_decode(a, np.uint32, C, device=dev), flat)
         t_dec[kind] = time.perf_counter() - t0
         got = _read_counts()
-        expect(f"2048x2048 {kind} stream decode", got, ("unpack",),
-               tiled + ("pack",))
+        expect(f"2048x2048 {kind} stream decode", got, ("unpack_tiled",),
+               ("pack", "unpack", "pack_tiled"))
         if not np.array_equal(back, flat):
             raise AssertionError(f"2048x2048 {kind} stream decode lost "
                                  f"pixels")
@@ -484,10 +528,9 @@ def _stream_phase(rng, dev, card: str, workdir: Path) -> dict:
         if not np.array_equal(t2.prolix(i), fr[i]):
             raise AssertionError(f"Terse.prolix({i}) differs")
     got = _read_counts()
-    # the batch of 24 takes the one-pass pack; 512x512 frames are too
-    # small for the tiled unpack (FrameSpec.tiled), so the single frames of
-    # prolix take the one-pass unpack
-    expect("Terse", got, ("pack", "unpack"), tiled)
+    # the batch of 24 takes the one-pass pack, the single frames of prolix
+    # the tiled unpack (FrameSpec.tiled_pack, FrameSpec.tiled)
+    expect("Terse", got, ("pack", "unpack_tiled"), ("pack_tiled", "unpack"))
     if blob.read_bytes() != ncodec.encode(
             fr.reshape(24, -1), dimensions=(512, 512)).to_bytes():
         raise AssertionError("Terse.write bytes differ from the native "
@@ -519,6 +562,27 @@ def _short(key: str) -> str:
         return key
     return key.replace("(anonymous namespace)::", "").split("(")[0].split(
         "<")[0].split("::")[-1]
+
+
+def _launch_ms(fn, reps: int = 10) -> dict:
+    """Device ms per call of each kernel that `fn` launches, by short
+    name: a ``torch.profiler`` window over `reps` calls after a warm
+    one."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA], acc_events=True) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    out: dict[str, float] = {}
+    for e in prof.key_averages():
+        if e.device_type == DeviceType.CUDA:
+            k = _short(e.key)
+            out[k] = out.get(k, 0.0) + e.self_device_time_total / 1e3 / reps
+    return out
 
 
 def _stream_layers(flat, dims, C, dev, workdir: Path) -> dict:
@@ -636,7 +700,6 @@ def main() -> int:
     from trpx_tpu_torch import _build, native
     from trpx_tpu_torch.native import codec as ncodec
     from trpx_tpu_torch.ops import (
-        TILE_BLOCKS,
         FrameSpec,
         decode_batch,
         decode_batch_plain,
@@ -687,9 +750,10 @@ def main() -> int:
                     wd=torch.from_numpy(widths.astype(np.uint8)).to(dev),
                     wo=torch.from_numpy(words.view(np.int32)).to(dev))
 
-    def calls(m, tile=TILE_BLOCKS):
+    def calls(m, tile=None):
         """Each kernel's wrapper and its plain version on the inputs `m`,
-        the tiled ones at `tile`-block tiles."""
+        the tiled ones at `tile`-block tiles (None: their default
+        geometry)."""
         spec, x, wo, wd, odt = m["spec"], m["x"], m["wo"], m["wd"], m["odt"]
         return {
             "pack": (lambda: encode_batch(spec, x),
@@ -705,20 +769,19 @@ def main() -> int:
 
     err = dict.fromkeys(_counters(), 0)
 
-    def check(name, fr, kernels, block=12, tile=TILE_BLOCKS):
-        """The named kernels (the tiled ones at `tile`-block tiles) against
-        their plain versions on frames `fr` in blocks of `block` values,
-        and each decode against the frames; keeps the largest error of
-        each kernel in `err` and returns the device inputs."""
+    def check(name, fr, kernels, block=12, tile=None):
+        """The named kernels (the tiled ones at `tile`-block tiles, None:
+        their default geometry) against their plain versions on frames
+        `fr` in blocks of `block` values, and each decode against the
+        frames; keeps the largest error of each kernel in `err` and
+        returns the device inputs."""
         m = inputs(fr, block)
         for k in kernels:
             fn, plain = calls(m, tile)[k]
             got, want = fn(), plain()
             if k.startswith("pack"):
-                if k == "pack":
-                    # the one-pass pack defines each frame's words up to
-                    # its bits
-                    got = (stream_words(got[0], got[1]),) + tuple(got[1:])
+                # a pack kernel defines each frame's words up to its bits
+                got = (stream_words(got[0], got[1]),) + tuple(got[1:])
                 e = max(_diff(g, w) for g, w in zip(got, want))
             else:
                 e = _diff(got, want)
@@ -759,7 +822,7 @@ def main() -> int:
         for dt in DTYPES]
     tiled_cases.append((
         "2048x2048 u32 x4", _frames(rng, 4, 2048 * 2048, np.uint32,
-                                    hot_value=HOT_U32), TILE_BLOCKS))
+                                    hot_value=HOT_U32), None))
     main_inputs = {}
     for name, fr in one_pass_cases:
         m = check(name, fr, one_pass)
@@ -767,11 +830,24 @@ def main() -> int:
             main_inputs = m
     for name, fr, tile in tiled_cases:
         check(name, fr, tiled, tile=tile)
+    # at their default tiles: blocks larger than a tile, and tiles of
+    # fewer than 32 bits
+    wide_cases = [(f"{BIG_BLOCK}-value blocks {np.dtype(dt).name}",
+                   _big_block_frames(rng, dt), BIG_BLOCK)
+                  for dt in (np.uint8, np.int16, np.uint32, np.int32)]
+    wide_cases += [(f"zero {WIDE_BLOCK}-value blocks {np.dtype(dt).name}",
+                    _sparse_frames(rng, dt), WIDE_BLOCK)
+                   for dt in (np.uint16, np.int32)]
+    for name, fr, block in wide_cases:
+        check(name, fr, tiled, block=block)
     torch.cuda.synchronize()
     print(f"phase 3 kernels == plain versions (exact): one-pass on "
-          f"{len(one_pass_cases)} inputs, tiled on {len(tiled_cases)} "
-          f"({len(tiled_cases) - 1} dtypes at {SMALL_TILE}-block tiles, "
-          f"2048x2048 u32 x4 at {TILE_BLOCKS})", flush=True)
+          f"{len(one_pass_cases)} inputs, tiled on "
+          f"{len(tiled_cases) + len(wide_cases)} ({len(tiled_cases) - 1} "
+          f"dtypes at {SMALL_TILE}-block tiles; at their default tiles "
+          f"2048x2048 u32 x4, {BIG_BLOCK}-value blocks (larger than a "
+          f"tile) on 4 dtypes, tiles of fewer than 32 bits on 2)",
+          flush=True)
 
     # phase 4: the 512x512 path, with the launch counters
     stack = main_frames.reshape(F_MAIN, SIDE, SIDE)
@@ -791,19 +867,19 @@ def main() -> int:
           f"{r['t_foreign'] * 1e3:.1f} ms", flush=True)
     del stack, r
 
-    # phase 5: the big-frame paths. Every encode takes the one-pass pack;
-    # the 8 frames of 4096x4096 decode with the tiled unpack, the 32 of
-    # 2048x2048 with the one-pass unpack (FrameSpec.tiled)
+    # phase 5: the big-frame paths. Both batches encode with the one-pass
+    # pack and decode with the tiled unpack (FrameSpec.tiled_pack,
+    # FrameSpec.tiled)
     big_inputs = {}
     layers = ({}, {})
-    routes = {2048: ("pack", "unpack"), 4096: ("pack", "unpack_tiled")}
     for side, F in BIG:
         stack = _frames(rng, F, side * side, np.uint32,
                         hot_value=HOT_U32).reshape(F, side, side)
         r = _drive(stack)
         got = r["launches"]
-        if min(got[k] for k in routes[side]) < 1 or any(
-                got[k] for k in got if k not in routes[side]):
+        route = _route(FrameSpec.for_dtype(side * side, np.uint32), F)
+        if min(got[k] for k in route) < 1 or any(
+                got[k] for k in got if k not in route):
             raise AssertionError(f"{side}x{side} path took the wrong "
                                  f"kernels: {got}")
         for k, v in got.items():
@@ -824,21 +900,23 @@ def main() -> int:
         name = f"{F}x{side}x{side} u32"
         big_inputs[side] = check(name, stack.reshape(F, -1), one_pass + tiled)
         print(f"phase 5 kernels == plain versions (exact) at {name}: "
-              f"one-pass, and tiled at {TILE_BLOCKS}-block tiles", flush=True)
+              f"one-pass, and tiled at their default tiles", flush=True)
         if side == BIG[0][0]:
             layers = _profile_layers(stack, r["arch"], dev)
         del stack, r
     # blocks of 1,024 int32 values are too large for a tile of the one-pass
-    # pack, so compress takes the tiled pack (FrameSpec.tiled_pack); the
-    # one-pass unpack takes them at 32-block tiles
+    # pack, so compress takes the tiled pack (FrameSpec.tiled_pack); 4
+    # frames decode with the tiled unpack
     side, F = BIG[0][0], 4
     wide = rng.integers(-300, 300, (F, side * side)).astype(np.int32)
     wide[np.repeat(np.arange(F), 200),
          rng.integers(0, side * side, F * 200)] = -HOT_U32  # int32 output
     r = _drive(wide.reshape(F, side, side), block=WIDE_BLOCK)
     got = r["launches"]
-    if min(got["pack_tiled"], got["unpack"]) < 1 or got["pack"] \
-            or got["unpack_tiled"]:
+    route = _route(FrameSpec.for_dtype(side * side, np.int32, WIDE_BLOCK), F)
+    if route != ("pack_tiled", "unpack_tiled") or min(
+            got[k] for k in route) < 1 or any(
+                got[k] for k in got if k not in route):
         raise AssertionError(f"{WIDE_BLOCK}-value blocks took the wrong "
                              f"kernels: {got}")
     for k, v in got.items():
@@ -846,8 +924,8 @@ def main() -> int:
     wide_name = f"{F}x{side}x{side} i32, block {WIDE_BLOCK}"
     print(f"phase 5 wide-block path: {wide_name}, bytes == native codec, "
           f"lossless, foreign decode ok, launches {got}", flush=True)
-    # the kernels its route ran (and the tiled unpack) against their plain
-    # versions at its shape
+    # the kernels its route ran (and the one-pass unpack) against their
+    # plain versions at its shape
     wide_inputs = check(wide_name, wide, ("pack_tiled", "unpack",
                                           "unpack_tiled"), block=WIDE_BLOCK)
     print(f"phase 5 kernels == plain versions (exact) at {wide_name}: "
@@ -870,7 +948,7 @@ def main() -> int:
     def traffic(m):
         spec, x, wd, odt = m["spec"], m["x"], m["wd"], m["odt"]
         F = x.shape[0]
-        pack = encode_batch_tiled if spec.tiled_pack else encode_batch
+        pack = encode_batch_tiled if spec.tiled_pack(F) else encode_batch
         bits = pack(spec, x)[1]
         stream = 4 * int(defined_words(bits).sum().item())
         pixels_in = x.numel() * x.element_size()
@@ -903,6 +981,14 @@ def main() -> int:
               f"{event[k]} ms), bytes in {io_bytes[k][0]} out "
               f"{io_bytes[k][1]}, bound {_bound_ms(sum(io_bytes[k]))} ms, "
               f"plain {plain_ms[k]} ms", flush=True)
+    # the tiled kernels' time by launch (each runs three) at the same shapes
+    for k in tiled:
+        m, name, _ = at[k]
+        print(f"phase 6 {k} launches ({card}; torch.profiler, ms per call) "
+              f"at {name}: " + ", ".join(
+                  f"{n} {v:.4f}"
+                  for n, v in _launch_ms(calls(m)[k][0]).items()),
+              flush=True)
     # the pack's one fill: its zeroed scratch (ticket, tile descriptors,
     # widths), part of its time above
     spec = main_inputs["spec"]
@@ -910,9 +996,9 @@ def main() -> int:
     fill_ms = event_ms(lambda: torch.zeros(
         (pack_scratch_ints(F_MAIN, tiles),), dtype=torch.int32, device=dev),
         20)
-    # the other routes at the 512x512 and big shapes, 32 x 2048x2048 u32
-    # among them, which the tiled kernels took before the one-pass ones
-    # (route_sweep times both routes at 1-256 frames)
+    # the other routes at the 512x512 and big shapes, the tiled pack at
+    # 32 x 2048x2048 u32 among them (route_sweep times both routes at
+    # 1-256 frames)
     others = [(main_name, k) for k in tiled] + [
         (big_name[s], k) for s in big_name for k in one_pass + tiled
         if (big_name[s], k) != (shape["unpack_tiled"], "unpack_tiled")]

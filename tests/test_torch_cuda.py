@@ -6,9 +6,9 @@ without the suite's conftest (which imports jax):
 
     python -m pytest --noconftest -q tests/test_torch_cuda.py
 
-Tolerance: exact (lossless integer codec). The one-pass pack defines
+Tolerance: exact (lossless integer codec). Both pack kernels define
 only the words of each frame's stream (``cuda_pack.defined_words``), so
-its words are compared through ``stream_words``.
+their words are compared through ``stream_words``.
 """
 
 import numpy as np
@@ -18,7 +18,7 @@ import torch
 from trpx_tpu_torch import compress, decompress
 from trpx_tpu_torch.native import codec as ncodec
 from trpx_tpu_torch.ops import (
-    TILE_BLOCKS,
+    TILED_MAX_FRAMES,
     FrameSpec,
     decode_batch,
     decode_batch_plain,
@@ -29,6 +29,8 @@ from trpx_tpu_torch.ops import (
     encode_batch_plain,
     encode_batch_tiled,
     encode_batch_tiled_plain,
+    tiled_pack_geometry,
+    tiled_unpack_geometry,
     walk_archive,
 )
 from trpx_tpu_torch.ops.coding import _pad_batch
@@ -181,16 +183,18 @@ def test_wide_blocks_on_card(cuda, dtype):
     versions across several tiles, worst-case fields included."""
     block = 1024
     spec0 = FrameSpec.for_dtype(10**6, dtype, block)
-    assert spec0.tiled_pack and not spec0.tiled(64)
+    # every encode of them takes the tiled pack; the one-pass unpack can
+    # tile them (batches of TILED_MAX_FRAMES frames take it)
+    assert spec0.tiled_pack(TILED_MAX_FRAMES)
+    assert not spec0.tiled(TILED_MAX_FRAMES)
     n = 3 * unpack_geometry(spec0)[0] * block + 5
     fr = _frames(dtype, n, seed=7)
     info = np.iinfo(dtype)
     fr[1, block * 40 : block * 41] = info.min if info.min < 0 else info.max
     spec = FrameSpec.for_dtype(n, dtype, block)
     x = torch.from_numpy(_pad_batch(fr, spec)).to(cuda)
-    got = encode_batch_tiled(spec, x)
-    for g, w in zip(got, encode_batch_tiled_plain(spec, x)):
-        assert torch.equal(g, w)
+    got = encode_batch_tiled_plain(spec, x)
+    _same_pack(encode_batch_tiled(spec, x), got)
     wd = block_widths(spec, x)[1].to(torch.uint8).contiguous()
     for odt in {decoded_dtype(spec), torch.int32}:
         want = decode_batch_plain(spec, got[0], wd, odt)
@@ -243,7 +247,8 @@ TILED_CASES = [(np.uint8, 64 * 12 * 3 + 100), (np.int8, 64 * 12 * 2),
                (np.uint32, 64 * 12 * 3 + 100), (np.int32, 64 * 12 * 3 + 50)]
 
 
-@pytest.mark.parametrize("tile_blocks", [64, TILE_BLOCKS])
+# 64-block tiles, and the default geometry (None)
+@pytest.mark.parametrize("tile_blocks", [64, None])
 @pytest.mark.parametrize("dtype,n", TILED_CASES)
 def test_tiled_pack_kernel_matches_plain(cuda, dtype, n, tile_blocks):
     fr = _tiled_frames(dtype, n, seed=n)
@@ -252,13 +257,11 @@ def test_tiled_pack_kernel_matches_plain(cuda, dtype, n, tile_blocks):
     before = encode_batch_tiled.launches
     got = encode_batch_tiled(spec, x, tile_blocks)
     assert encode_batch_tiled.launches == before + 1
-    for g, w in zip(got, encode_batch_tiled_plain(spec, x, tile_blocks)):
-        assert torch.equal(g, w)
-    for g, w in zip(got, encode_batch_plain(spec, x)):
-        assert torch.equal(g, w)
+    _same_pack(got, encode_batch_tiled_plain(spec, x, tile_blocks))
+    _same_pack(got, encode_batch_plain(spec, x))
 
 
-@pytest.mark.parametrize("tile_blocks", [64, TILE_BLOCKS])
+@pytest.mark.parametrize("tile_blocks", [64, None])
 @pytest.mark.parametrize("dtype,n", TILED_CASES)
 def test_tiled_unpack_kernel_matches_plain(cuda, dtype, n, tile_blocks):
     fr = _tiled_frames(dtype, n, seed=n + 1)
@@ -279,10 +282,65 @@ def test_tiled_unpack_kernel_matches_plain(cuda, dtype, n, tile_blocks):
         .cpu().numpy().astype(dtype), fr)
 
 
+def _both_tiled_kernels(spec, fr, cuda):
+    """Both tiled kernels at their default geometry against their plain
+    versions (and the untiled plain pack) on frames `fr`, and the decode
+    against the frames."""
+    x = torch.from_numpy(_pad_batch(fr, spec)).to(cuda)
+    want = encode_batch_tiled_plain(spec, x)
+    _same_pack(encode_batch_tiled(spec, x), want)
+    _same_pack(encode_batch_tiled(spec, x), encode_batch_plain(spec, x))
+    wd = block_widths(spec, x)[1].to(torch.uint8).contiguous()
+    for odt in {decoded_dtype(spec), torch.int32}:
+        got = decode_batch_tiled(spec, want[0], wd, odt)
+        ref = decode_batch_tiled_plain(spec, want[0], wd, odt)
+        if odt == torch.uint16:
+            got, ref = got.view(torch.int16), ref.view(torch.int16)
+        assert torch.equal(got, ref)
+    np.testing.assert_array_equal(
+        decode_batch_tiled(spec, want[0], wd, decoded_dtype(spec)).cpu()
+        .numpy().astype(fr.dtype), fr)
+
+
+@pytest.mark.parametrize("dtype,block", [(np.uint8, 9000), (np.int16, 4097),
+                                         (np.uint32, 5000),
+                                         (np.int32, 12345)])
+def test_tiled_kernels_block_larger_than_a_tile(cuda, dtype, block):
+    """Blocks larger than the tiles' value budget: one-block tiles, packed
+    and unpacked in chunks; a partial last block, a zero block (no
+    fields), and the widest field at a chunk's edge."""
+    n = 3 * block + 17
+    spec = FrameSpec.for_dtype(n, dtype, block)
+    assert tiled_pack_geometry(spec)[0] == 1
+    assert tiled_unpack_geometry(spec)[0] == 1
+    fr = _frames(dtype, n, seed=block)
+    info = np.iinfo(dtype)
+    fr[1, block : 2 * block] = 0
+    fr[2, 4096] = info.min if info.min < 0 else info.max
+    fr[2, block + 4095] = info.min if info.min < 0 else info.max
+    _both_tiled_kernels(spec, fr, cuda)
+
+
+@pytest.mark.parametrize("dtype", [np.uint16, np.int32])
+def test_tiled_kernels_tiles_of_few_bits(cuda, dtype):
+    """Tiles of fewer than 32 bits (a few all-zero blocks of 1,024 values,
+    1-4 header bits each), so many tiles share a word, beside tiles of
+    data."""
+    block = 1024
+    n = 200 * block + 100
+    spec = FrameSpec.for_dtype(n, dtype, block)
+    fr = np.zeros((3, n), dtype)
+    fr[0, 5 * block + 3] = 7
+    fr[1, -1] = np.iinfo(dtype).max
+    fr[2, 17 * block : 18 * block] = 1
+    fr[2, 100 * block :] = _frames(dtype, n - 100 * block, seed=5, F=1)[0]
+    _both_tiled_kernels(spec, fr, cuda)
+
+
 def test_big_frame_path_round_trip(cuda):
-    """Two 2048x2048 u32 frames take the one-pass pack and, being fewer
-    than TILED_MAX_FRAMES frames of TILED_MIN_BLOCKS blocks or more, the
-    tiled unpack."""
+    """Two 2048x2048 u32 frames, fewer than TILED_PACK_MAX_FRAMES frames of
+    TILED_MIN_BLOCKS blocks or more and fewer than TILED_MAX_FRAMES, take
+    the tiled pack and the tiled unpack."""
     rng = np.random.default_rng(2048)
     fr = rng.poisson(3.0, (2, 2048 * 2048)).astype(np.uint32)
     fr[np.repeat([0, 1], 200), rng.integers(0, fr.shape[1], 400)] = \
@@ -296,8 +354,8 @@ def test_big_frame_path_round_trip(cuda):
     np.testing.assert_array_equal(decompress(arch, device=cuda), fr)
     after = (encode_batch.launches, decode_batch.launches,
              encode_batch_tiled.launches, decode_batch_tiled.launches)
-    assert after[0] > counts[0] and after[3] > counts[3]
-    assert (after[1], after[2]) == (counts[1], counts[2])
+    assert after[2] > counts[2] and after[3] > counts[3]
+    assert (after[0], after[1]) == (counts[0], counts[1])
 
 
 def test_stream_encoder_on_card_equals_cpu_run(cuda, tmp_path):

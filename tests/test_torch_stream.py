@@ -104,7 +104,6 @@ def test_stream_join_of_untiled_and_tiled_chunks(tmp_path, monkeypatch):
     in chunks of 7 takes the one-pass unpack for the full chunks and the
     tiled one (here with 4-block tiles) for the partial last chunk. The
     file and the pixels are still exact."""
-    monkeypatch.setattr(tcoding, "TILED_MIN_BLOCKS", 4)
     monkeypatch.setattr(tcoding, "TILED_MAX_FRAMES", 4)
     calls = []
 

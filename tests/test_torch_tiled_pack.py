@@ -1,7 +1,9 @@
-"""PyTorch port, tiled encode (big frames): the plain version of the tiled
-pack kernels (CPU tensors) against the JAX package's tiled Pallas encode
-in interpret mode at 64-block tiles, against the untiled plain version,
-on the golden vectors, and the routing of big frames to the tiled
+"""PyTorch port, tiled encode (big frames, wide blocks): the plain version
+of the tiled pack kernels (CPU tensors), at 64-block tiles and at the
+kernels' default tiles (``tiled_pack_geometry``), against the JAX
+package's tiled Pallas encode in interpret mode at 64-block tiles, against
+the untiled plain version, on the golden vectors, at one-block tiles of
+blocks larger than a tile, and the routing of big frames to the tiled
 wrappers.
 
 Inputs are made with numpy from fixed seeds. The tolerance is exact: TRPX
@@ -23,10 +25,11 @@ from trpx_tpu_torch.format.pycodec import TrpxArchive
 from trpx_tpu_torch.native import codec as ncodec
 from trpx_tpu_torch.ops import coding as tcoding
 from trpx_tpu_torch.ops.cuda_pack import (
-    TILE_BLOCKS,
+    TILE_VALUES,
     encode_batch_plain,
     encode_batch_tiled,
     encode_batch_tiled_plain,
+    tiled_pack_geometry,
 )
 
 TB = 64  # blocks per tile under test, as tests/test_pallas_tiled.py
@@ -84,6 +87,76 @@ def test_tiled_plain_matches_pallas_tiled(small_tiles, kind, n):
     assert ours.to_bytes() == ncodec.encode(fr).to_bytes()
 
 
+@pytest.mark.parametrize("kind", ["u16", "i32"])
+def test_default_tiles_match_pallas_tiled(small_tiles, kind):
+    """The tiled plain version at the kernels' default tiles (three of
+    ``tiled_pack_geometry``'s 682 blocks, the last partial) against the
+    tiled Pallas encode at 64-block tiles and the untiled plain version."""
+    n = 2 * TILE_VALUES + 100
+    fr = _jax_case(kind, n)
+    spec = tcoding.FrameSpec.for_dtype(n, fr.dtype)
+    assert -(-spec.nb // tiled_pack_geometry(spec)[0]) == 3
+    x = torch.from_numpy(tcoding._pad_batch(fr, spec))
+    w, b, m = encode_batch_tiled_plain(spec, x)
+    for g, want in zip((w, b, m), encode_batch_plain(spec, x)):
+        assert torch.equal(g, want)
+    jspec = jcoding.FrameSpec.for_dtype(n, fr.dtype)
+    padded = np.zeros((fr.shape[0], jspec.tree_rows * jspec.block), fr.dtype)
+    padded[:, :n] = fr
+    jw, jb, jm, _ = jax.device_get(
+        pallas_pack.encode_batch_pallas_tiled(jspec, padded, True))
+    np.testing.assert_array_equal(b.numpy(), jb)
+    np.testing.assert_array_equal(m.numpy(), jm)
+    ours = tcoding.assemble_archive(spec, w.numpy().view(np.uint32),
+                                    b.numpy(), m.numpy())
+    ref = jcoding.assemble_archive(jspec, np.asarray(jw), np.asarray(jb),
+                                   np.asarray(jm))
+    assert ours.to_bytes() == ref.to_bytes()
+
+
+def big_block_frames(dtype, seed: int = 0):
+    """Three frames in blocks of ``BIG_BLOCK`` values, more than a tile's
+    value budget: random data with the widest field on both sides of the
+    first chunk edge (value ``TILE_VALUES``), a zero block, and a partial
+    last block."""
+    n = 3 * BIG_BLOCK + 17
+    rng = np.random.default_rng(seed + n)
+    info = np.iinfo(dtype)
+    if info.min < 0:
+        fr = rng.integers(-300, 300, (3, n)).clip(info.min, info.max)
+    else:
+        fr = rng.poisson(3.0, (3, n))
+    fr = fr.astype(dtype)
+    widest = info.min if info.min < 0 else info.max
+    fr[0, TILE_VALUES - 1 : TILE_VALUES + 1] = widest
+    fr[1, BIG_BLOCK : 2 * BIG_BLOCK] = 0
+    fr[2, -1] = widest
+    return fr
+
+
+#: values in a block larger than a tile of the tiled kernels
+BIG_BLOCK = TILE_VALUES + 808
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_one_block_tiles_of_blocks_larger_than_a_tile(dtype):
+    """Blocks larger than ``TILE_VALUES`` values: the default tiles are
+    one block each (which the kernel places in chunks). The tiled plain
+    version there against the untiled plain version, exactly, and its
+    archive against the native codec's bytes. The JAX package's encoders
+    take minutes on the CPU at such blocks, so they are not run here."""
+    fr = big_block_frames(dtype)
+    spec = tcoding.FrameSpec.for_dtype(fr.shape[1], dtype, BIG_BLOCK)
+    assert tiled_pack_geometry(spec)[0] == 1
+    x = torch.from_numpy(tcoding._pad_batch(fr, spec))
+    got = encode_batch_tiled(spec, x)   # CPU: plain version
+    for g, w in zip(got, encode_batch_plain(spec, x)):
+        assert torch.equal(g, w)
+    w, b, m = (a.numpy() for a in got)
+    arch = tcoding.assemble_archive(spec, w.view(np.uint32), b, m)
+    assert arch.to_bytes() == ncodec.encode(fr, block=BIG_BLOCK).to_bytes()
+
+
 def edge_frames(dtype, n: int = TB * 12 * 3 + 101, seed: int = 0):
     """Four frames with the tiled kernels' hard cases at 64-block tiles:
     random data (with the widest field), a constant frame, a first tile of
@@ -137,43 +210,49 @@ def test_golden_vectors_through_tiled_encode(name, vals, dtype, block, attrs,
 
 
 def test_tiled_routing_by_block_count():
-    """Frames of fewer than TILED_MIN_BLOCKS blocks (a 2048x2048 frame's)
-    never take the tiled unpack."""
+    """Encodes of few frames take the tiled pack only for frames of at
+    least TILED_MIN_BLOCKS blocks (a 2048x2048 frame's)."""
     spec = tcoding.FrameSpec.for_dtype
     for side in (2048, 4096):                           # >= 349,526 blocks
-        assert spec(side * side, np.uint32).tiled(1)
+        assert spec(side * side, np.uint32).tiled_pack(1)
     for side in (256, 512, 1024):                       # <= 87,382 blocks
-        assert not spec(side * side, np.uint32).tiled(1)
+        assert not spec(side * side, np.uint32).tiled_pack(1)
     edge = tcoding.TILED_MIN_BLOCKS * 12
-    assert not spec(edge - 12, np.uint16).tiled(1)
-    assert spec(edge, np.uint16).tiled(1)
+    assert not spec(edge - 12, np.uint16).tiled_pack(1)
+    assert spec(edge, np.uint16).tiled_pack(1)
 
 
 def test_tiled_routing_by_frame_count():
-    """Decodes of few big frames take the tiled unpack: the 4096x4096 u32
-    batches of 8 do, the 2048x2048 u32 batches of 32 and the 512x512 u16
-    batches of 256 take the one-pass unpack. Encodes never route by frame
-    count: the one-pass pack takes every batch whose blocks it can
-    tile, and the tiled pack only blocks of hundreds of 32-bit values."""
+    """Decodes of fewer than TILED_MAX_FRAMES frames take the tiled unpack
+    whatever their size: one 512x512 u16 frame, the 2048x2048 u32 batches
+    of 32 and the 4096x4096 batches of 8 do, the 512x512 u16 batches of
+    256 take the one-pass unpack. Encodes of fewer than
+    TILED_PACK_MAX_FRAMES big frames take the tiled pack, as do blocks of
+    hundreds of 32-bit values; the one-pass pack takes every other
+    batch."""
     spec = tcoding.FrameSpec.for_dtype
     assert not spec(512 * 512, np.uint16).tiled(256)
-    assert not spec(2048 * 2048, np.uint32).tiled(32)
+    assert spec(512 * 512, np.uint16).tiled(1)
+    assert spec(2048 * 2048, np.uint32).tiled(32)
     assert spec(4096 * 4096, np.uint32).tiled(8)
+    many = tcoding.TILED_PACK_MAX_FRAMES
     for dtype in (np.uint8, np.int16, np.uint32, np.int32):
         for block in (3, 12, 64, 512):
-            assert not spec(4096 * 4096, dtype, block).tiled_pack
-    assert spec(4096, np.int32, 1024).tiled_pack
-    assert spec(4096, np.uint32, 1024).tiled_pack
-    assert not spec(4096, np.uint16, 1024).tiled_pack
+            assert not spec(4096 * 4096, dtype, block).tiled_pack(many)
+    assert spec(4096, np.int32, 1024).tiled_pack(256)
+    assert spec(4096, np.uint32, 1024).tiled_pack(256)
+    assert not spec(4096, np.uint16, 1024).tiled_pack(256)
+    assert spec(2048 * 2048, np.uint32).tiled_pack(many - 1)
+    assert not spec(2048 * 2048, np.uint32).tiled_pack(many)
     limit = tcoding.TILED_MAX_FRAMES
     assert spec(2048 * 2048, np.uint32).tiled(limit - 1)
     assert not spec(2048 * 2048, np.uint32).tiled(limit)
-    assert not spec(1024 * 1024, np.uint32).tiled(1)
+    assert not spec(1024 * 1024, np.uint32).tiled(limit)
 
 
 def test_big_frame_takes_the_tiled_wrappers(monkeypatch):
     """One overflow-heavy 2048x2048 u32 frame through compress/decompress
-    on the CPU: the one-pass pack and the tiled unpack run, the other two
+    on the CPU: the tiled pack and the tiled unpack run, the other two
     wrappers never."""
     rng = np.random.default_rng(2048)
     fr = rng.poisson(3.0, (1, 2048, 2048)).astype(np.uint32)
@@ -189,9 +268,9 @@ def test_big_frame_takes_the_tiled_wrappers(monkeypatch):
     def refuse(*args, **kwargs):
         raise AssertionError("a big frame took the wrong kernel")
 
-    for name in ("encode_batch", "decode_batch_tiled"):
+    for name in ("encode_batch_tiled", "decode_batch_tiled"):
         monkeypatch.setattr(tcoding, name, spy(getattr(tcoding, name)))
-    monkeypatch.setattr(tcoding, "encode_batch_tiled", refuse)
+    monkeypatch.setattr(tcoding, "encode_batch", refuse)
     monkeypatch.setattr(tcoding, "decode_batch", refuse)
     arch = trpx_tpu_torch.compress(fr, device="cpu")
     assert arch.to_bytes() == ncodec.encode(
@@ -199,7 +278,7 @@ def test_big_frame_takes_the_tiled_wrappers(monkeypatch):
     out = trpx_tpu_torch.decompress(TrpxArchive.from_bytes(arch.to_bytes()),
                                     device="cpu")
     np.testing.assert_array_equal(out, fr[0])
-    assert calls == ["encode_batch", "decode_batch_tiled"]
+    assert calls == ["encode_batch_tiled", "decode_batch_tiled"]
 
 
 @pytest.mark.parametrize("dtype", [np.uint32, np.int32])

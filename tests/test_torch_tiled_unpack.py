@@ -1,8 +1,10 @@
-"""PyTorch port, tiled decode (big frames): the plain version of the tiled
-unpack kernels (CPU tensors) against the JAX package's tiled Pallas
-decode in interpret mode at 64-block tiles, the tile tables against the
-JAX host prepass, against the untiled plain version, and on the golden
-vectors.
+"""PyTorch port, tiled decode (big frames, wide blocks): the plain version
+of the tiled unpack kernels (CPU tensors), at 64-block tiles and at the
+kernels' default tiles (``tiled_unpack_geometry``), against the JAX
+package's tiled Pallas decode in interpret mode at 64-block tiles, the
+tile tables against the JAX host prepass, against the untiled plain
+version, on the golden vectors, and at one-block tiles of blocks larger
+than a tile.
 
 Inputs are made with numpy from fixed seeds; the tolerance is exact
 (lossless integer codec). The CUDA kernels themselves are held against
@@ -15,7 +17,13 @@ import pytest
 import torch
 
 from test_format_golden import GOLDEN
-from test_torch_tiled_pack import DTYPES, TB, edge_frames
+from test_torch_tiled_pack import (
+    BIG_BLOCK,
+    DTYPES,
+    TB,
+    big_block_frames,
+    edge_frames,
+)
 from trpx_tpu.format.pycodec import TrpxArchive as JTrpxArchive
 from trpx_tpu.ops import coding as jcoding
 from trpx_tpu.ops import pallas_unpack
@@ -23,13 +31,14 @@ from trpx_tpu_torch.format import encode as format_encode
 from trpx_tpu_torch.format.pycodec import TrpxArchive
 from trpx_tpu_torch.native import codec as ncodec
 from trpx_tpu_torch.ops import coding as tcoding
+from trpx_tpu_torch.ops.cuda_pack import TILE_VALUES, tile_tables_plain
 from trpx_tpu_torch.ops.cuda_unpack import (
     decode_batch_plain,
     decode_batch_tiled,
     decode_batch_tiled_plain,
     decoded_dtype,
+    tiled_unpack_geometry,
 )
-from trpx_tpu_torch.ops.cuda_pack import tile_tables_plain
 
 
 def _foreign(arch):
@@ -83,6 +92,34 @@ def test_tiled_plain_matches_pallas_tiled(kind, n):
     np.testing.assert_array_equal(ours, fr)
 
 
+@pytest.mark.parametrize("kind", ["u16", "i32"])
+def test_default_tiles_match_pallas_tiled(kind):
+    """The tiled plain version at the kernels' default tiles (three of
+    ``tiled_unpack_geometry``'s 682 blocks, the last partial) against the
+    tiled Pallas decode at 64-block tiles, the untiled plain version and
+    the frames."""
+    n = 2 * TILE_VALUES + 100
+    fr = _decode_case(kind, n)
+    arch = ncodec.encode(fr)
+    jspec = jcoding.FrameSpec.for_dtype(n, fr.dtype)
+    jwidths, _, jwords = jcoding.walk_archive(_jax(arch), jspec)
+    ref = jax.device_get(pallas_unpack.decode_tiled_host(
+        jspec, jwords, jwidths, interpret=True, tile_blocks=TB))
+    ref = jcoding.narrow_values(pallas_unpack.flatten_decoded(ref, n),
+                                fr.dtype)
+    spec = tcoding.FrameSpec.for_dtype(n, fr.dtype)
+    assert -(-spec.nb // tiled_unpack_geometry(spec)[0]) == 3
+    widths, words = tcoding.walk_archive(_foreign(arch), spec)
+    words = torch.from_numpy(words.view(np.int32))
+    widths = torch.from_numpy(widths.astype(np.uint8))
+    out = decode_batch_tiled_plain(spec, words, widths, decoded_dtype(spec))
+    assert torch.equal(out, decode_batch_plain(spec, words, widths,
+                                               decoded_dtype(spec)))
+    ours = tcoding.narrow_values(out.numpy(), fr.dtype)
+    np.testing.assert_array_equal(ours, ref)
+    np.testing.assert_array_equal(ours, fr)
+
+
 @pytest.mark.parametrize("tile_blocks", [1, 8, TB])
 @pytest.mark.parametrize("kind,n", [("u16", TB * 12 * 3 + 100),
                                     ("i32", TB * 12 * 3 + 50),
@@ -121,6 +158,29 @@ def test_tiled_plain_equals_untiled_plain(dtype, tile_blocks):
         before = decode_batch_tiled.launches
         got = decode_batch_tiled(spec, words, widths, odt, tile_blocks)
         assert decode_batch_tiled.launches == before   # CPU: plain version
+        want = decode_batch_plain(spec, words, widths, odt)
+        assert got.dtype == want.dtype
+        np.testing.assert_array_equal(got.numpy(), want.numpy())
+    np.testing.assert_array_equal(
+        tcoding.narrow_values(got.numpy(), dtype), fr)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_one_block_tiles_of_blocks_larger_than_a_tile(dtype):
+    """Blocks larger than ``TILE_VALUES`` values: the default tiles are
+    one block each (which the kernel decodes in chunks). The tiled plain
+    version there against the untiled plain version and the frames,
+    exactly, into both output types. The JAX package's decoders take
+    minutes on the CPU at such blocks, so they are not run here."""
+    fr = big_block_frames(dtype, seed=1)
+    spec = tcoding.FrameSpec.for_dtype(fr.shape[1], dtype, BIG_BLOCK)
+    assert tiled_unpack_geometry(spec)[0] == 1
+    widths, words = tcoding.walk_archive(
+        ncodec.encode(fr, block=BIG_BLOCK), spec)
+    words = torch.from_numpy(words.view(np.int32))
+    widths = torch.from_numpy(widths.astype(np.uint8))
+    for odt in {decoded_dtype(spec), torch.int32}:
+        got = decode_batch_tiled(spec, words, widths, odt)   # CPU: plain
         want = decode_batch_plain(spec, words, widths, odt)
         assert got.dtype == want.dtype
         np.testing.assert_array_equal(got.numpy(), want.numpy())

@@ -94,11 +94,11 @@ def load() -> ctypes.CDLL:
             lib.trpx_unpack.argtypes = [vp, vp, i, i, i, i, i, i, i, i, i,
                                         vp, vp, i, vp]
             lib.trpx_pack_tiled.restype = i
-            lib.trpx_pack_tiled.argtypes = [vp, i, i, i, i, i, i, i, i, vp,
+            lib.trpx_pack_tiled.argtypes = [vp, i, i, i, i, i, i, i, i, i,
                                             vp, vp, vp, vp, i, vp]
             lib.trpx_unpack_tiled.restype = i
             lib.trpx_unpack_tiled.argtypes = [vp, vp, i, i, i, i, i, i, i,
-                                              vp, vp, i, vp]
+                                              i, i, vp, vp, i, vp]
             lib.trpx_cuda_error_string.restype = ctypes.c_char_p
             lib.trpx_cuda_error_string.argtypes = [i]
             _LIB = lib

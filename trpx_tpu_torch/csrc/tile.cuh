@@ -1,11 +1,14 @@
-// Helpers of the one-pass kernels pack.cu and unpack.cu: a CTA scan (a
-// template on the CTA size), 16-byte staging of a range of a row into
-// shared memory (unpack.cu; pack.cu copies with cp.async into the same
-// layout), a block's width from values in shared memory, and the host's
-// cache of a kernel's shared-memory attributes and residency.
-//
-// The tiled kernels of pack_tiled.cu / unpack_tiled.cu keep the loops of
-// common.cuh; only its format helpers are shared.
+// CTA-level pieces of the kernels, each a template on the CTA size: a CTA
+// scan; 16-byte staging of a range of a row into shared memory (unpack.cu,
+// unpack_tiled.cu; pack.cu copies with cp.async into the same layout); a
+// block's width from values in shared memory (pack.cu); each block's bit
+// offset in a tile from the tile's widths; the frame scan of the tiles'
+// bits that gives each tile its start (the tiled kernels); the tiled
+// kernels' value budget and the shared-memory carve-up of a CTA that holds
+// a tile's stream words (unpack.cu and the tiled kernels); the staged
+// extraction of a tile's values with 16-byte stores (unpack.cu,
+// unpack_tiled.cu); and the host's cache of a kernel's shared-memory
+// attributes and residency.
 #pragma once
 
 #include <cstdint>
@@ -95,7 +98,184 @@ __device__ __forceinline__ int tile_block_width(const T* x, int count) {
   } else {
     for (int j = 0; j < count; ++j) m |= magnitude(x[j]);
   }
-  return m ? 32 - __clz(m) + (std::is_signed<T>::value ? 1 : 0) : 0;
+  return width_of<T>(m);
+}
+
+// Values in block b of a frame of n values in blocks of B (the last block
+// may be partial).
+__device__ __forceinline__ int block_count(int b, int B, int n) {
+  return min(B, n - b * B);
+}
+
+// Bit offset of each of the `nblk` blocks of a tile (blocks b0...) from
+// the tile's start, from the widths s_w[0..nblk] (s_w[0]: the block before
+// the tile, 0 for a frame's first): the first header bit, or with
+// kPayload the first payload bit, into s_off[i]. A thread scans a run of
+// consecutive blocks. Every thread must call it; s_scan is kNT / 32 + 1
+// ints; the caller synchronises before reading s_off. Returns the tile's
+// bits.
+template <int kNT, bool kPayload>
+__device__ __forceinline__ int block_offsets(const uint8_t* s_w, int nblk,
+                                             int B, int n, int b0,
+                                             int* s_off, int* s_scan) {
+  const int per = (nblk + kNT - 1) / kNT;
+  const int i0 = min(int(threadIdx.x) * per, nblk);
+  const int i1 = min(i0 + per, nblk);
+  int sum = 0;
+  for (int i = i0; i < i1; ++i) {
+    const int w = s_w[i + 1];
+    sum += header_bits(w, s_w[i]) + w * block_count(b0 + i, B, n);
+  }
+  int total;
+  int run = cta_scan<kNT>(sum, s_scan, total);
+  for (int i = i0; i < i1; ++i) {
+    const int w = s_w[i + 1];
+    const int hb = header_bits(w, s_w[i]);
+    s_off[i] = kPayload ? run + hb : run;
+    run += hb + w * block_count(b0 + i, B, n);
+  }
+  return total;
+}
+
+// The start of every tile of frame f = blockIdx.x: `part` (F, T) holds
+// each tile's bits without its first header, which is coded here against
+// the width of the block before the tile (`widths` (F, nb) u8, tiles of
+// tb blocks). Writes the exclusive prefix into start (F, T + 1), the
+// frame's bits into start[f, T], and returns them. `visit(t, P)` is
+// called once for every tile start P and, by thread 0, for the frame's
+// end (t = T). One pass: a thread sums a run of tiles, then the CTA scans
+// the runs. Every thread must call it; s_scan is kNT / 32 + 1 ints.
+template <int kNT, typename Visit>
+__device__ __forceinline__ int scan_tile_starts(
+    const int* __restrict__ part, const uint8_t* __restrict__ widths,
+    int nb, int tb, int T, int* __restrict__ start, int* s_scan,
+    Visit visit) {
+  const int f = blockIdx.x;
+  const int* p = part + size_t(f) * T;
+  const uint8_t* wd = widths + size_t(f) * nb;
+  int* st = start + size_t(f) * (T + 1);
+  const int per = (T + kNT - 1) / kNT;
+  const int t0 = min(int(threadIdx.x) * per, T);
+  const int t1 = min(t0 + per, T);
+  auto bits = [&](int t) {
+    const int b = t * tb;
+    return p[t] + header_bits(wd[b], t ? int(wd[b - 1]) : 0);
+  };
+  int sum = 0;
+  for (int t = t0; t < t1; ++t) sum += bits(t);
+  int total;
+  int run = cta_scan<kNT>(sum, s_scan, total);
+  for (int t = t0; t < t1; ++t) {
+    st[t] = run;
+    visit(t, run);
+    run += bits(t);
+  }
+  if (threadIdx.x == 0) {
+    st[T] = total;
+    visit(T, total);
+  }
+  return total;
+}
+
+// ------------------------------------------------ tiles and extraction ---
+
+// Values in a tile of the tiled kernels (pack_tiled.cu, unpack_tiled.cu):
+// a tile holds max(1, kTileValues / block) whole blocks, and a tile of one
+// larger block is walked in chunks of kTileValues values.
+// ops/cuda_pack.py:TILE_VALUES.
+constexpr int kTileValues = 8192;
+
+// Shared-memory carve-up of a CTA that holds a tile's stream words: the
+// words (room for a tile of `tile_blocks` blocks of `block` values of the
+// widest fields, the bit phase of its first word, the 16-byte phase and
+// the two-word window), the block offsets and the widths (with the block
+// before the tile first). ops/cuda_pack.py:tile_smem_bytes computes the
+// same numbers. The tiled kernels size a one-block tile's chunk as a tile
+// of one block of `chunk` values.
+struct TileSmem {
+  int words_cap, total;
+  __host__ __device__ TileSmem(int max_width, int block, int tile_blocks) {
+    const long long bits =
+        static_cast<long long>(tile_blocks) * (12 + block * max_width);
+    words_cap = int(((bits + 31) / 32 + 6 + 3) / 4 * 4);
+    total = 4 * words_cap + 4 * tile_blocks + (tile_blocks + 1 + 15) / 16 * 16;
+  }
+};
+
+// The staged words of a tile: words [lo, hi) of the row, word lo at
+// src[lo - origin].
+struct Staged {
+  const uint32_t* src;
+  int origin, lo, hi;
+};
+
+// The value at bit `off` of the frame: the two-word window at word
+// off / 32 of the row, clamped into the staged words. A 33-bit field keeps
+// its low 32 bits; kSigned sign-extends.
+template <typename OutT, bool kSigned>
+__device__ __forceinline__ OutT field_at(const Staged& sw, int off, int w) {
+  const int idx = min(max(off >> 5, sw.lo), sw.hi - 2) - sw.origin;
+  const uint32_t* src = sw.src;
+  const uint64_t win = uint64_t(src[idx]) | (uint64_t(src[idx + 1]) << 32);
+  uint32_t u = uint32_t(win >> (off & 31));
+  if (w < 32) {
+    const uint32_t mask = (1u << w) - 1u;
+    u &= mask;
+    if (kSigned && w > 0 && ((u >> (w - 1)) & 1u)) u |= ~mask;
+  }
+  return static_cast<OutT>(u);
+}
+
+// Values [v0, v1) of the frame into its output row `o`: the values
+// between the first and the last 16-byte boundary of the row in groups of
+// 16 bytes, each one vector store; the ragged ends one value at a time.
+// Value v is field j = v % B of block i = v / B - b0, at bit
+// P + s_off[i] + j * w of the frame (s_off: payload offsets). The block
+// size is a compile-time constant when kB > 0 (the division is a
+// multiply).
+template <int kNT, typename OutT, bool kSigned, int kB>
+__device__ __forceinline__ void extract_tile(
+    const Staged& sw, int P, int B, int b0, int v0, int v1, const int* s_off,
+    const uint8_t* s_w, OutT* __restrict__ o) {
+  constexpr int kV = 16 / int(sizeof(OutT));
+  const int BB = kB > 0 ? kB : B;
+  const int mis = int((reinterpret_cast<uintptr_t>(o + v0) & 15u) /
+                      sizeof(OutT));
+  const int a0 = min(v0 + (mis ? kV - mis : 0), v1);
+  const int groups = (v1 - a0) / kV;
+  const int a1 = a0 + groups * kV;
+  for (int g = threadIdx.x; g < groups; g += kNT) {
+    const int v = a0 + g * kV;
+    const int bq = v / BB;
+    int j = v - bq * BB;
+    int i = bq - b0;
+    int w = s_w[i + 1];
+    int off = P + s_off[i] + j * w;
+    union {
+      uint4 u;
+      OutT e[kV];
+    } pack;
+#pragma unroll
+    for (int q = 0; q < kV; ++q) {
+      pack.e[q] = field_at<OutT, kSigned>(sw, off, w);
+      off += w;
+      if (++j == BB && q + 1 < kV) {  // the next value opens a block
+        j = 0;
+        ++i;
+        w = s_w[i + 1];
+        off = P + s_off[i];
+      }
+    }
+    *reinterpret_cast<uint4*>(o + v) = pack.u;
+  }
+  for (int v = threadIdx.x; v < (a0 - v0) + (v1 - a1); v += kNT) {
+    const int vv = v < a0 - v0 ? v0 + v : a1 + (v - (a0 - v0));
+    const int bq = vv / BB;
+    const int i = bq - b0;
+    const int w = s_w[i + 1];
+    o[vv] = field_at<OutT, kSigned>(sw, P + s_off[i] + (vv - bq * BB) * w,
+                                    w);
+  }
 }
 
 // How many CTAs of a kernel fit on the card at once at a dynamic shared

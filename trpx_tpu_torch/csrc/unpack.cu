@@ -46,21 +46,6 @@ constexpr int kNT = 128;
 constexpr int kMinCtas = 8;
 constexpr int kOffsetsThreads = 256;
 
-// Shared-memory carve-up of an unpack_tiles CTA: the staged words (room
-// for a tile of the widest fields of the target, the 16-byte phase and
-// the two-word window), the block payload offsets and the widths (with the
-// block before the tile first). ops/cuda_unpack.py:unpack_smem_bytes
-// computes the same numbers.
-struct UnpackSmem {
-  int words_cap, total;
-  __host__ __device__ UnpackSmem(int max_width, int block, int tile_blocks) {
-    const long long bits =
-        static_cast<long long>(tile_blocks) * (12 + block * max_width);
-    words_cap = int(((bits + 31) / 32 + 6 + 3) / 4 * 4);
-    total = 4 * words_cap + 4 * tile_blocks + (tile_blocks + 1 + 15) / 16 * 16;
-  }
-};
-
 // Bit offset of every tile of frame blockIdx.x and the frame's total bits
 // into ts[f * (tiles + 1) + ...].
 __global__ void __launch_bounds__(kOffsetsThreads)
@@ -93,79 +78,6 @@ tile_offsets(const uint8_t* __restrict__ widths, int n, int block, int nb,
     run += total;
   }
   if (threadIdx.x == 0) row[tiles] = run;
-}
-
-// The staged words of a tile: words [lo, hi) of the row, word lo at
-// src[lo - origin].
-struct Staged {
-  const uint32_t* src;
-  int origin, lo, hi;
-};
-
-// The value at bit `off` of the frame: the two-word window at word
-// off / 32 of the row, clamped into the staged words.
-template <typename OutT, bool kSigned>
-__device__ __forceinline__ OutT field_at(const Staged& sw, int off, int w) {
-  const int idx = min(max(off >> 5, sw.lo), sw.hi - 2) - sw.origin;
-  const uint32_t* src = sw.src;
-  const uint64_t win = uint64_t(src[idx]) | (uint64_t(src[idx + 1]) << 32);
-  uint32_t u = uint32_t(win >> (off & 31));
-  if (w < 32) {
-    const uint32_t mask = (1u << w) - 1u;
-    u &= mask;
-    if (kSigned && w > 0 && ((u >> (w - 1)) & 1u)) u |= ~mask;
-  }
-  return static_cast<OutT>(u);
-}
-
-// Values [v0, v1) of the tile into the frame's output row `o`: the values
-// between the first and the last 16-byte boundary of the row in groups of
-// 16 bytes, each one vector store; the ragged ends one value at a time.
-// Value v is field j = v % B of block i = v / B - b0, at bit
-// P + s_off[i] + j * w of the frame.
-template <typename OutT, bool kSigned, int kB>
-__device__ __forceinline__ void extract_tile(
-    const Staged& sw, int P, int B, int b0, int v0, int v1, const int* s_off,
-    const uint8_t* s_w, OutT* __restrict__ o) {
-  constexpr int kV = 16 / int(sizeof(OutT));
-  const int BB = kB > 0 ? kB : B;
-  const int mis = int((reinterpret_cast<uintptr_t>(o + v0) & 15u) /
-                      sizeof(OutT));
-  const int a0 = min(v0 + (mis ? kV - mis : 0), v1);
-  const int groups = (v1 - a0) / kV;
-  const int a1 = a0 + groups * kV;
-  for (int g = threadIdx.x; g < groups; g += kNT) {
-    const int v = a0 + g * kV;
-    const int bq = v / BB;
-    int j = v - bq * BB;
-    int i = bq - b0;
-    int w = s_w[i + 1];
-    int off = P + s_off[i] + j * w;
-    union {
-      uint4 u;
-      OutT e[kV];
-    } pack;
-#pragma unroll
-    for (int q = 0; q < kV; ++q) {
-      pack.e[q] = field_at<OutT, kSigned>(sw, off, w);
-      off += w;
-      if (++j == BB && q + 1 < kV) {  // the next value opens a block
-        j = 0;
-        ++i;
-        w = s_w[i + 1];
-        off = P + s_off[i];
-      }
-    }
-    *reinterpret_cast<uint4*>(o + v) = pack.u;
-  }
-  for (int v = threadIdx.x; v < (a0 - v0) + (v1 - a1); v += kNT) {
-    const int vv = v < a0 - v0 ? v0 + v : a1 + (v - (a0 - v0));
-    const int bq = vv / BB;
-    const int i = bq - b0;
-    const int w = s_w[i + 1];
-    o[vv] = field_at<OutT, kSigned>(sw, P + s_off[i] + (vv - bq * BB) * w,
-                                    w);
-  }
 }
 
 template <typename OutT, bool kSigned, int kB>
@@ -205,36 +117,22 @@ unpack_tiles(const uint32_t* __restrict__ words,
   __syncthreads();
 
   // 2. each block's first payload bit in the tile
-  const int per = (nblk + kNT - 1) / kNT;
-  const int i0 = min(int(threadIdx.x) * per, nblk);
-  const int i1 = min(i0 + per, nblk);
-  int sum = 0;
-  for (int i = i0; i < i1; ++i) {
-    const int w = s_w[i + 1];
-    sum += header_bits(w, s_w[i]) + w * min(B, n - (b0 + i) * B);
-  }
-  int tile_total;
-  int run = cta_scan<kNT>(sum, s_scan, tile_total);
-  for (int i = i0; i < i1; ++i) {
-    const int w = s_w[i + 1];
-    const int hb = header_bits(w, s_w[i]);
-    s_off[i] = run + hb;
-    run += hb + w * min(B, n - (b0 + i) * B);
-  }
+  block_offsets<kNT, true>(s_w, nblk, B, n, b0, s_off, s_scan);
   __syncthreads();
 
   // 3. extract
   const int v0 = b0 * B;
   const int v1 = min((b0 + nblk) * B, n);
   OutT* o = out + size_t(f) * n;
-  extract_tile<OutT, kSigned, kB>(Staged{s_words, base - shift, base, end},
-                                  P, B, b0, v0, v1, s_off, s_w, o);
+  extract_tile<kNT, OutT, kSigned, kB>(
+      Staged{s_words, base - shift, base, end}, P, B, b0, v0, v1, s_off, s_w,
+      o);
 }
 
 template <typename OutT, bool kSigned, int kB>
 cudaError_t launch(const void* words, const void* widths, int F, int W,
                    int n, int block, int nb, int tiles, int tile_blocks,
-                   const UnpackSmem& sm, int* ts, void* out, int device,
+                   const TileSmem& sm, int* ts, void* out, int device,
                    cudaStream_t stream) {
   auto kernel = unpack_tiles<OutT, kSigned, kB>;
   // the attributes once per (device, shared-memory size): the launch is on
@@ -257,7 +155,7 @@ cudaError_t launch(const void* words, const void* widths, int F, int W,
 template <typename OutT, bool kSigned>
 cudaError_t launch_block(const void* words, const void* widths, int F, int W,
                          int n, int block, int nb, int tiles, int tile_blocks,
-                         const UnpackSmem& sm, int* ts, void* out,
+                         const TileSmem& sm, int* ts, void* out,
                          int device, cudaStream_t stream) {
   if (block == 12) {  // DEFAULT_BLOCK: division by a constant
     return launch<OutT, kSigned, 12>(words, widths, F, W, n, block, nb,
@@ -278,7 +176,7 @@ cudaError_t launch_block(const void* words, const void* widths, int F, int W,
 // Sign-extends iff `is_signed`. `max_width` is the target's widest field
 // (shared memory is sized for it). Scratch: `tile_start` (F, tiles + 1)
 // int32. `smem_bytes` must be the dynamic shared memory of an unpack_tiles
-// CTA (ops/cuda_unpack.py:unpack_smem_bytes). Launches on `stream` of
+// CTA (ops/cuda_pack.py:tile_smem_bytes). Launches on `stream` of
 // device `device` and returns the first CUDA error.
 extern "C" int trpx_unpack(const void* words, const void* widths, int F,
                            int W, int n, int block, int tile_blocks,
@@ -294,7 +192,7 @@ extern "C" int trpx_unpack(const void* words, const void* widths, int F,
   const int nb = (n - 1) / block + 1;
   const int tiles = (nb - 1) / tile_blocks + 1;
   if (int64_t(F) * tiles > (1 << 27)) return int(cudaErrorInvalidValue);
-  const trpx::UnpackSmem sm(max_width, block, tile_blocks);
+  const trpx::TileSmem sm(max_width, block, tile_blocks);
   if (sm.total != smem_bytes) return int(cudaErrorInvalidValue);
   int* ts = static_cast<int*>(tile_start);
   cudaStream_t s = static_cast<cudaStream_t>(stream);

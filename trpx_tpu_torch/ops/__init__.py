@@ -10,6 +10,7 @@ There is no fallback: a kernel that fails to build or launch raises.
 from .coding import (  # noqa: F401
     TILED_MAX_FRAMES,
     TILED_MIN_BLOCKS,
+    TILED_PACK_MAX_FRAMES,
     FrameSpec,
     InFlight,
     assemble_archive,
@@ -24,12 +25,12 @@ from .coding import (  # noqa: F401
     walk_archive,
 )
 from .cuda_pack import (  # noqa: F401
-    TILE_BLOCKS,
     encode_batch,
     encode_batch_plain,
     encode_batch_tiled,
     encode_batch_tiled_plain,
     tile_tables_plain,
+    tiled_pack_geometry,
 )
 from .cuda_unpack import (  # noqa: F401
     decode_batch,
@@ -37,4 +38,5 @@ from .cuda_unpack import (  # noqa: F401
     decode_batch_tiled,
     decode_batch_tiled_plain,
     decoded_dtype,
+    tiled_unpack_geometry,
 )

@@ -6,15 +6,17 @@ byte-exact ``.trpx`` archive on the host. Decode walks the archive's block
 headers on the host (the native walker, serial by nature), then runs the
 unpack kernel. Where the JAX package routes by ``pallas_ok`` and
 ``pallas_ok_decode``, this one routes by what an H100 measured
-(``route_sweep``): every encode takes the one-pass pack
-(``cuda_pack.encode_batch``) unless its blocks are too large for the
-one-pass kernel's shared memory (``FrameSpec.tiled_pack``), which the
-tiled pack (``encode_batch_tiled``) has no limit on; a decode of fewer
-than ``TILED_MAX_FRAMES`` frames of at least ``TILED_MIN_BLOCKS`` blocks
-each takes the tiled unpack (``cuda_unpack.decode_batch_tiled``), as do
-blocks the one-pass unpack cannot tile (``FrameSpec.tiled``), any other
-the one-pass unpack (``decode_batch``). Each kernel wrapper launches the CUDA kernel for
-CUDA tensors and runs its plain PyTorch version for CPU tensors.
+(``route_sweep``): an encode of fewer than ``TILED_PACK_MAX_FRAMES``
+frames of at least ``TILED_MIN_BLOCKS`` blocks each takes the tiled pack
+(``cuda_pack.encode_batch_tiled``), as do blocks too large for the
+one-pass kernel's shared memory, which the tiled pack has no limit on
+(``FrameSpec.tiled_pack``), any other the one-pass pack
+(``encode_batch``); a decode of fewer than ``TILED_MAX_FRAMES`` frames
+takes the tiled unpack (``cuda_unpack.decode_batch_tiled``), as do blocks
+the one-pass unpack cannot tile (``FrameSpec.tiled``), any other the
+one-pass unpack (``decode_batch``). Each kernel wrapper launches the CUDA
+kernel for CUDA tensors and runs its plain PyTorch version for CPU
+tensors.
 
 Each layer of ``encode`` and ``decode`` runs in a ``record_function``
 range (``trpx.encode.pad``, ``.h2d``, ``.kernel``, ``.d2h``, ``.assemble``;
@@ -75,19 +77,23 @@ _DEVICE_DTYPES = {
     np.dtype(np.int32): (True, 33, torch.int32),
 }
 
-#: decodes of fewer frames than TILED_MAX_FRAMES, each of at least
-#: TILED_MIN_BLOCKS blocks, take the tiled unpack. The one-pass unpack's
-#: offset pass runs one CTA per frame over the frame's widths, so it lags
-#: by a time that grows with the blocks of a frame, until enough frames
-#: share the card. Device times on an H100 80GB HBM3 (route_sweep, PERF.md
-#: section 6): at 2048x2048 and 4096x4096 u32 (349,526 and 1,398,102
-#: blocks) the tiled unpack won at 1-24 frames and lost from 32 on
-#: (2048x2048 x 24: 0.320 against 0.333 ms, x 32: 0.432 against 0.390); at
-#: 1024x1024 u16 (87,382 blocks) it lost at 1-16 frames and tied at 24, at
-#: 512x512 u16 at every count. Between 87,382 and 349,526 blocks, and
-#: between 24 and 32 frames, nothing was measured. The one-pass pack won
-#: at every size and count, so encodes do not route by frames
-TILED_MAX_FRAMES = 32
+#: Routes, from device times per call on an H100 80GB HBM3 at 700 W
+#: (route_sweep, PERF.md section 6). Decodes of fewer than
+#: TILED_MAX_FRAMES frames take the tiled unpack, whose tile offsets take
+#: many CTAs a frame where the one-pass unpack's take one: it won at 1-64
+#: frames of every class swept (512x512 and 1024x1024 u16, 2048x2048 and
+#: 4096x4096 u32 in blocks of 12, 2048x2048 i32 in blocks of 1,024; 0.0140
+#: against 0.0165 ms on one 512x512 frame, 0.2597 against 0.3923 on 32 of
+#: 2048x2048), tied (512x512) or won at 128, lost at 192 on the u16
+#: classes (512x512: 0.0883 against 0.0856) and won there on 2048x2048,
+#: and lost at 256 on all (256 x 512x512: 0.1131 against 0.1062).
+#: Encodes of fewer than TILED_PACK_MAX_FRAMES frames of at least
+#: TILED_MIN_BLOCKS blocks take the tiled pack, whose tiles spread a frame
+#: over the card: it won at 1-3 frames of 2048x2048 and 4096x4096 u32
+#: (0.0288 against 0.0433 ms on one 2048x2048 frame) and lost from 4 on;
+#: on 1024x1024 u16 it won by 4% on one frame only, on 512x512 never
+TILED_MAX_FRAMES = 192
+TILED_PACK_MAX_FRAMES = 4
 TILED_MIN_BLOCKS = -(-2048 * 2048 // DEFAULT_BLOCK)  # a 2048x2048 frame
 
 
@@ -133,18 +139,19 @@ class FrameSpec:
 
     def tiled(self, frames: int) -> bool:
         """True if a decode of `frames` such frames takes the tiled
-        unpack: fewer than ``TILED_MAX_FRAMES`` frames of at least
-        ``TILED_MIN_BLOCKS`` blocks, or blocks too large for the one-pass
-        unpack."""
-        return ((self.nb >= TILED_MIN_BLOCKS and frames < TILED_MAX_FRAMES)
-                or not _fits(unpack_geometry, self))
+        unpack: fewer than ``TILED_MAX_FRAMES`` frames, or blocks too
+        large for the one-pass unpack."""
+        return frames < TILED_MAX_FRAMES or not _fits(unpack_geometry, self)
 
-    @property
-    def tiled_pack(self) -> bool:
-        """True if an encode takes the tiled pack: blocks too large for a
-        32-block tile of the one-pass pack in shared memory (hundreds of
-        32-bit values)."""
-        return not _fits(pack_geometry, self)
+    def tiled_pack(self, frames: int) -> bool:
+        """True if an encode of `frames` such frames takes the tiled pack:
+        fewer than ``TILED_PACK_MAX_FRAMES`` frames of at least
+        ``TILED_MIN_BLOCKS`` blocks, or blocks too large for a 32-block
+        tile of the one-pass pack in shared memory (hundreds of 32-bit
+        values)."""
+        return ((self.nb >= TILED_MIN_BLOCKS
+                 and frames < TILED_PACK_MAX_FRAMES)
+                or not _fits(pack_geometry, self))
 
     @property
     def torch_dtype(self) -> torch.dtype:
@@ -259,11 +266,11 @@ def encode_dispatch(spec: FrameSpec, x: torch.Tensor,
                     pin: bool = False) -> InFlight:
     """Launch the pack kernel of the padded (F, n_padded) batch ``x`` on
     the current stream of its device (``encode_batch_tiled`` when
-    ``spec.tiled_pack``, else ``encode_batch``) and start copying the frame
+    ``spec.tiled_pack(F)``, else ``encode_batch``) and start copying the frame
     bit counts and widths back (into pinned memory when ``pin``). Returns
     without waiting for the device."""
     with record_function("trpx.encode.kernel"):
-        words, bits, maxw = (encode_batch_tiled if spec.tiled_pack
+        words, bits, maxw = (encode_batch_tiled if spec.tiled_pack(len(x))
                              else encode_batch)(spec, x)
     with record_function("trpx.encode.d2h"):
         host = (_host_copy(bits, pin), _host_copy(maxw, pin))

@@ -4,18 +4,18 @@ plain PyTorch versions.
 ``encode_batch`` launches the CUDA kernel ``csrc/pack.cu`` (one pass, one
 CTA per tile of :func:`pack_geometry` blocks, tiles chained by a
 decoupled look-back) and ``encode_batch_tiled`` the kernels
-``csrc/pack_tiled.cu`` (two launches, one CTA per frame and tile of
-``tile_blocks`` blocks, for big frames) for a CUDA tensor; for a CPU tensor
-each runs its plain version (``encode_batch_plain``,
-``encode_batch_tiled_plain``). All return ``(words, bits, maxw)``:
-``words`` (F, n_words) int32 holding the uint32 stream words, ``bits`` and
-``maxw`` (F,) int32, each frame's total bit count and largest block width.
-Words ``[0, bits // 32]`` of each frame (:func:`defined_words`) hold its
-stream, zero above its last bit; that is all ``encode_collect`` and
-``assemble_archive`` read. ``encode_batch`` leaves the words after them
-undefined (it writes every word of that prefix exactly once and needs no
-zero-fill); the plain versions and the tiled kernels leave them zero. The
-stream does not depend on the tile size.
+``csrc/pack_tiled.cu`` (three launches over tiles of
+:func:`tiled_pack_geometry` blocks, for blocks of any size) for a CUDA
+tensor; for a CPU tensor each runs its plain version
+(``encode_batch_plain``, ``encode_batch_tiled_plain``). All return
+``(words, bits, maxw)``: ``words`` (F, n_words) int32 holding the uint32
+stream words, ``bits`` and ``maxw`` (F,) int32, each frame's total bit
+count and largest block width. Words ``[0, bits // 32]`` of each frame
+(:func:`defined_words`) hold its stream, zero above its last bit; that is
+all ``encode_collect`` and ``assemble_archive`` read. Both kernels leave
+the words after them undefined (they write every word of that prefix and
+need no zero-fill); the plain versions leave them zero. The stream does
+not depend on the tile size.
 
 The plain version computes the plan of ``trpx_tpu/ops/coding.py:plan_frame``
 (block widths, header bits and values, the exclusive prefix of block bits)
@@ -59,12 +59,6 @@ def _bit_length(x: torch.Tensor) -> torch.Tensor:
     return n + x
 
 
-#: blocks per tile of the tiled kernels (csrc/pack_tiled.cu,
-#: csrc/unpack_tiled.cu): about five waves of 1,024-thread CTAs on an
-#: H100's 132 SMs for a 2048x2048 u32 batch of 32 frames (1,376 tiles) or
-#: a 4096x4096 batch of 8 (1,368)
-TILE_BLOCKS = 8192
-
 #: dynamic shared memory a CTA may take on an H100: 232,448 bytes less room
 #: for the one-pass kernels' static shared memory (csrc/tile.cuh)
 SMEM_LIMIT = 232448 - 1024
@@ -74,7 +68,11 @@ PACK_SMEM_TARGET = 44 * 1024
 #: fewest blocks in a tile of the one-pass kernels: every block has a
 #: header bit, so the 32 bits before a tile belong to the tile before it
 MIN_TILE_BLOCKS = 32
-
+#: values in a tile of the tiled kernels (csrc/tile.cuh kTileValues): a
+#: tile holds max(1, TILE_VALUES // block) whole blocks, and a tile of one
+#: larger block is walked in chunks of this many values. Measured on an
+#: H100 (PERF.md, section 6)
+TILE_VALUES = 8192
 
 def _round_up(x: int, m: int) -> int:
     return -(-x // m) * m
@@ -130,6 +128,55 @@ def pack_scratch_ints(frames: int, tiles: int) -> int:
     pad word), two uint64 descriptors per (frame, tile), then the frames'
     largest widths."""
     return 2 + 4 * frames * tiles + frames
+
+
+def tile_smem_bytes(max_width: int, block: int, tile_blocks: int) -> int:
+    """Dynamic shared memory of a CTA that holds a tile's stream words
+    (``csrc/tile.cuh:TileSmem``: ``unpack.cu``, and the placement and
+    extraction CTAs of the tiled kernels): the words of a tile of the
+    widest fields (+6 for the bit and 16-byte phases and the two-word
+    window, rounded to 4), an int offset per block and a byte width per
+    block and the one before (rounded to 16)."""
+    cap = _round_up(-(-tile_blocks * (12 + block * max_width) // 32) + 6, 4)
+    return 4 * cap + 4 * tile_blocks + _round_up(tile_blocks + 1, 16)
+
+
+def value_tile_smem(kernel: str, spec, tile_blocks: int) -> int:
+    """Shared memory of a tiled kernel's CTA at tiles of ``tile_blocks``
+    blocks: :func:`tile_smem_bytes` of the tile, or for a one-block tile
+    of a chunk of at most ``TILE_VALUES`` values; raises ValueError above
+    ``SMEM_LIMIT``."""
+    vals = min(spec.block, TILE_VALUES) if tile_blocks == 1 else spec.block
+    smem = tile_smem_bytes(spec.max_width, vals, tile_blocks)
+    if smem > SMEM_LIMIT:
+        raise ValueError(f"{kernel} tile of {tile_blocks} blocks needs "
+                         f"{smem} bytes of shared memory, more than "
+                         f"{SMEM_LIMIT}")
+    return smem
+
+
+def value_tile_geometry(kernel: str, spec) -> tuple[int, int]:
+    """(tile_blocks, shared-memory bytes) of a tiled kernel for ``spec``:
+    tiles of ``TILE_VALUES`` values in whole blocks, at least one (one
+    block when a block is larger) and at most what the frame has. At most
+    ~36 KB of shared memory (at 33-bit fields), so several CTAs share an
+    SM."""
+    tb = min(max(1, TILE_VALUES // spec.block), spec.nb)
+    return tb, value_tile_smem(kernel, spec, tb)
+
+
+@functools.lru_cache(maxsize=64)
+def tiled_pack_geometry(spec) -> tuple[int, int]:
+    """(tile_blocks, shared-memory bytes) of ``csrc/pack_tiled.cu``'s
+    placement CTA for ``spec`` (:func:`value_tile_geometry`)."""
+    return value_tile_geometry("tiled pack", spec)
+
+
+def tiled_pack_scratch_ints(frames: int, tiles: int, nb: int) -> int:
+    """int32 words of ``csrc/pack_tiled.cu``'s scratch: per (frame, tile)
+    its bits without its first header and its largest width, the tile
+    starts (F, T + 1), then the (F, nb) uint8 block widths."""
+    return 2 * frames * tiles + frames * (tiles + 1) + -(-frames * nb // 4)
 
 
 def defined_words(bits: torch.Tensor) -> torch.Tensor:
@@ -285,10 +332,13 @@ def encode_batch_plain(spec, frames: torch.Tensor):
 
 
 def encode_batch_tiled_plain(spec, frames: torch.Tensor,
-                             tile_blocks: int = TILE_BLOCKS):
+                             tile_blocks: int | None = None):
     """Plain PyTorch encode of a (F, n_padded) batch in tiles of
-    ``tile_blocks`` blocks (:func:`tiled_plan`), on its own device; the
-    reference the tiled pack kernels are held against."""
+    ``tile_blocks`` blocks (:func:`tiled_plan`; by default those of
+    :func:`tiled_pack_geometry`), on its own device; the reference the
+    tiled pack kernels are held against."""
+    if tile_blocks is None:
+        tile_blocks = tiled_pack_geometry(spec)[0]
     x, width = block_widths(spec, frames)
     p = tiled_plan(spec, width, tile_blocks)
     words = _place(spec, x, width, p["hb"], p["hv"],
@@ -355,32 +405,41 @@ encode_batch.launches = 0
 
 
 def encode_batch_tiled(spec, frames: torch.Tensor,
-                       tile_blocks: int = TILE_BLOCKS):
-    """Encode a (F, n_padded) batch in tiles of ``tile_blocks`` blocks: the
-    CUDA kernels of ``csrc/pack_tiled.cu`` for a CUDA tensor,
+                       tile_blocks: int | None = None):
+    """Encode a (F, n_padded) batch in tiles of ``tile_blocks`` blocks (by
+    default those of :func:`tiled_pack_geometry`): the CUDA kernels of
+    ``csrc/pack_tiled.cu`` for a CUDA tensor,
     :func:`encode_batch_tiled_plain` for a CPU tensor. Padding values must
-    be zero. Counts kernel launches in ``encode_batch_tiled.launches``."""
+    be zero. As for :func:`encode_batch`, only :func:`defined_words` of
+    each frame's words are defined. Counts kernel launches in
+    ``encode_batch_tiled.launches``."""
     _check(spec, frames)
-    tile_blocks = check_tile_blocks(spec, tile_blocks)
+    if tile_blocks is None:
+        tile_blocks, smem = tiled_pack_geometry(spec)
+    else:
+        tile_blocks = check_tile_blocks(spec, tile_blocks)
+        smem = None
     if frames.device.type == "cpu":
         return encode_batch_tiled_plain(spec, frames, tile_blocks)
     if frames.device.type != "cuda":
         raise ValueError(f"no tiled pack kernel for device {frames.device}")
+    if smem is None:
+        smem = value_tile_smem("tiled pack", spec, tile_blocks)
     lib = _build.load()
     F = frames.shape[0]
     dev = frames.device
     T = -(-spec.nb // tile_blocks)
-    words = torch.zeros((F, spec.n_words), dtype=torch.int32, device=dev)
-    bits = torch.zeros((F,), dtype=torch.int32, device=dev)
-    maxw = torch.zeros((F,), dtype=torch.int32, device=dev)
+    words = torch.empty((F, spec.n_words), dtype=torch.int32, device=dev)
+    bits = torch.empty((F,), dtype=torch.int32, device=dev)
+    maxw = torch.empty((F,), dtype=torch.int32, device=dev)
     # scratch, freed in stream order after the launches
-    widths = torch.empty((F, spec.nb), dtype=torch.uint8, device=dev)
-    tile_bits = torch.empty((F, T), dtype=torch.int32, device=dev)
+    scratch = torch.empty((tiled_pack_scratch_ints(F, T, spec.nb),),
+                          dtype=torch.int32, device=dev)
     rc = lib.trpx_pack_tiled(
         frames.data_ptr(), frames.element_size(), int(spec.signed), F,
-        spec.n, spec.n_padded, spec.block, spec.n_words, tile_blocks,
-        widths.data_ptr(), tile_bits.data_ptr(), words.data_ptr(),
-        bits.data_ptr(), maxw.data_ptr(), dev.index,
+        spec.n, spec.n_padded, spec.block, spec.n_words, tile_blocks, smem,
+        words.data_ptr(), bits.data_ptr(), maxw.data_ptr(),
+        scratch.data_ptr(), dev.index,
         torch.cuda.current_stream(dev).cuda_stream)
     _build.check(rc, "tiled pack")
     encode_batch_tiled.launches += 1

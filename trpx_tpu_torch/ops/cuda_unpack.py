@@ -2,12 +2,13 @@
 plain PyTorch versions.
 
 ``decode_batch`` launches the CUDA kernels of ``csrc/unpack.cu`` (each
-tile's bit offset from the widths, then one CTA per tile of
-:func:`unpack_geometry` blocks) and ``decode_batch_tiled`` the kernels
-``csrc/unpack_tiled.cu`` (one CTA per frame and tile of ``tile_blocks``
-blocks, for big frames) for CUDA tensors; for CPU tensors each runs its
-plain version
-(``decode_batch_plain``, ``decode_batch_tiled_plain``). Inputs are the
+tile's bit offset from the widths in one CTA per frame, then one CTA per
+tile of :func:`unpack_geometry` blocks) and ``decode_batch_tiled`` those
+of ``csrc/unpack_tiled.cu`` (tile bits in many CTAs per frame, a scan,
+then one CTA per tile of :func:`tiled_unpack_geometry` blocks, for few
+big frames and blocks of any size) for CUDA tensors; for CPU tensors each
+runs its plain version (``decode_batch_plain``,
+``decode_batch_tiled_plain``). Inputs are the
 host walk's outputs: ``words`` (F, W) int32 holding each frame's uint32
 stream words (at least two words past each stream's last bit) and
 ``widths`` (F, nb) uint8. The output is flat (F, n): uint16 for unsigned
@@ -31,13 +32,14 @@ import torch
 
 from .. import _build
 from .cuda_pack import (
-    TILE_BLOCKS,
-    _round_up,
     block_counts,
     check_tile_blocks,
     choose_tile,
     header_codes,
+    tile_smem_bytes,
     tiled_plan,
+    value_tile_geometry,
+    value_tile_smem,
 )
 
 
@@ -52,16 +54,6 @@ def decoded_dtype(spec) -> torch.dtype:
 UNPACK_SMEM_TARGET = 32 * 1024
 
 
-def unpack_smem_bytes(max_width: int, block: int, tile_blocks: int) -> int:
-    """Dynamic shared memory of a ``csrc/unpack.cu`` CTA (its
-    ``UnpackSmem``): the words of a tile of the widest fields of the target
-    (+6 for the 16-byte phase and the two-word window, rounded to 4), an
-    int offset per block and a byte width per block and the one before
-    (rounded to 16)."""
-    cap = _round_up(-(-tile_blocks * (12 + block * max_width) // 32) + 6, 4)
-    return 4 * cap + 4 * tile_blocks + _round_up(tile_blocks + 1, 16)
-
-
 @functools.lru_cache(maxsize=64)
 def unpack_geometry(spec) -> tuple[int, int]:
     """(tile_blocks, shared-memory bytes) of ``csrc/unpack.cu`` for the
@@ -71,8 +63,22 @@ def unpack_geometry(spec) -> tuple[int, int]:
     larger blocks."""
     return choose_tile(
         spec, 1024 if spec.max_width <= 17 else 512,
-        lambda tb: unpack_smem_bytes(spec.max_width, spec.block, tb),
+        lambda tb: tile_smem_bytes(spec.max_width, spec.block, tb),
         UNPACK_SMEM_TARGET)
+
+
+@functools.lru_cache(maxsize=64)
+def tiled_unpack_geometry(spec) -> tuple[int, int]:
+    """(tile_blocks, shared-memory bytes) of ``csrc/unpack_tiled.cu``'s
+    extraction CTA for the target ``spec``
+    (:func:`cuda_pack.value_tile_geometry`)."""
+    return value_tile_geometry("tiled unpack", spec)
+
+
+def tiled_unpack_scratch_ints(frames: int, tiles: int) -> int:
+    """int32 words of ``csrc/unpack_tiled.cu``'s scratch: each tile's bits
+    without its first header (F, T), then the tile starts (F, T + 1)."""
+    return frames * tiles + frames * (tiles + 1)
 
 
 def _extract(spec, words: torch.Tensor, w: torch.Tensor,
@@ -118,10 +124,13 @@ def decode_batch_plain(spec, words: torch.Tensor, widths: torch.Tensor,
 
 def decode_batch_tiled_plain(spec, words: torch.Tensor,
                              widths: torch.Tensor, out_dtype: torch.dtype,
-                             tile_blocks: int = TILE_BLOCKS) -> torch.Tensor:
+                             tile_blocks: int | None = None) -> torch.Tensor:
     """Plain PyTorch decode in tiles of ``tile_blocks`` blocks
-    (``cuda_pack.tiled_plan``), on the inputs' device; the reference the
-    tiled unpack kernels are held against."""
+    (``cuda_pack.tiled_plan``; by default those of
+    :func:`tiled_unpack_geometry`), on the inputs' device; the reference
+    the tiled unpack kernels are held against."""
+    if tile_blocks is None:
+        tile_blocks = tiled_unpack_geometry(spec)[0]
     w = widths.to(torch.int64)
     p = tiled_plan(spec, w, tile_blocks)
     return _extract(spec, words, w, p["starts"], p["hb"], out_dtype)
@@ -181,30 +190,38 @@ decode_batch.launches = 0
 
 def decode_batch_tiled(spec, words: torch.Tensor, widths: torch.Tensor,
                        out_dtype: torch.dtype,
-                       tile_blocks: int = TILE_BLOCKS) -> torch.Tensor:
-    """Decode a batch in tiles of ``tile_blocks`` blocks: the CUDA kernels
-    of ``csrc/unpack_tiled.cu`` for CUDA tensors,
+                       tile_blocks: int | None = None) -> torch.Tensor:
+    """Decode a batch in tiles of ``tile_blocks`` blocks (by default those
+    of :func:`tiled_unpack_geometry`): the CUDA kernels of
+    ``csrc/unpack_tiled.cu`` for CUDA tensors,
     :func:`decode_batch_tiled_plain` for CPU tensors. Counts kernel
     launches in ``decode_batch_tiled.launches``."""
     _check(spec, words, widths, out_dtype)
-    tile_blocks = check_tile_blocks(spec, tile_blocks)
+    if tile_blocks is None:
+        tile_blocks, smem = tiled_unpack_geometry(spec)
+    else:
+        tile_blocks = check_tile_blocks(spec, tile_blocks)
+        smem = None
     if words.device.type == "cpu":
         return decode_batch_tiled_plain(spec, words, widths, out_dtype,
                                         tile_blocks)
     if words.device.type != "cuda":
         raise ValueError(f"no tiled unpack kernel for device {words.device}")
+    if smem is None:
+        smem = value_tile_smem("tiled unpack", spec, tile_blocks)
     lib = _build.load()
     F, W = words.shape
     dev = words.device
     out = torch.empty((F, spec.n), dtype=out_dtype, device=dev)
     # scratch, freed in stream order after the launches
-    tile_bits = torch.empty((F, -(-spec.nb // tile_blocks)),
-                            dtype=torch.int32, device=dev)
+    T = -(-spec.nb // tile_blocks)
+    scratch = torch.empty((tiled_unpack_scratch_ints(F, T),),
+                          dtype=torch.int32, device=dev)
     rc = lib.trpx_unpack_tiled(
         words.data_ptr(), widths.data_ptr(), F, W, spec.n, spec.block,
-        tile_blocks, int(spec.signed), int(out_dtype == torch.uint16),
-        tile_bits.data_ptr(), out.data_ptr(), dev.index,
-        torch.cuda.current_stream(dev).cuda_stream)
+        tile_blocks, spec.max_width, smem, int(spec.signed),
+        int(out_dtype == torch.uint16), scratch.data_ptr(), out.data_ptr(),
+        dev.index, torch.cuda.current_stream(dev).cuda_stream)
     _build.check(rc, "tiled unpack")
     decode_batch_tiled.launches += 1
     return out
