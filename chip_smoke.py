@@ -63,7 +63,29 @@ the tiled unpack. Phases, one line each (more for phases 5 and 6):
    ``push_back``s, ``write``, ``from_stream``, ``prolix`` of the first, a
    middle and the last frame (the one-pass pack, the tiled unpack).
    (a), (b) and (d) print host-clock frames/s beside the synchronous path
-   over the same chunks.
+   over the same chunks;
+8. the parallel path (``trpx_tpu_torch.parallel``): two worker processes
+   (this script with ``--worker``, fresh interpreters started with
+   ``subprocess``), both on ``cuda:0``, joined in a gloo process group on
+   localhost at a free port (``init_from_env``): (a) 2 x 128 of 512x512
+   u16 through ``ShardedCodec.encode_shards`` + ``write_shard_file`` into
+   one file, equal to the native codec's bytes of the 256 frames; (b) 2 x
+   2 of 2048x2048 u32 (each shard takes the tiled pack), likewise; (c)
+   ``StreamingShardEncoder`` over the 256 frames in 64-frame chunks, rank
+   1 killed (``os._exit(3)``) after chunk 2's checkpoint, a torn tail
+   written at the checkpoint, a relaunch that resumes and finalizes, equal
+   to the native bytes; then in this process on the card (d)
+   ``recover_shard`` of a zeroed back half and (e) ``decode_sharded`` of
+   both files, equal to the input. Each worker reports its launch counters
+   per drive, checked against the route ``FrameSpec`` gives each shard.
+   The two processes time-slice one card: their wall times are no scaling
+   figure;
+9. the CLI (``trpx_tpu_torch.cli.main.main``) in this process, default
+   device: ``encode`` of a 64 x 512x512 u16 and a 4 x 2048x2048 u32 TIFF
+   stack (written with the port's ``write_tiff``), equal to the native
+   codec's bytes; ``decode`` back to the same pixels; the same through
+   ``--stream``; ``verify``, ``info``; ``bench --frames 64 --e2e``. Each
+   step's launch counters are checked against its routes.
 
 It then prints the card line, a JSON line of per-kernel results and, last,
 ``{"ok": true, "device": {...}}``. Any failure exits non-zero before that
@@ -104,6 +126,13 @@ BIG_BLOCK = 9000
 #: one-pass kernels)
 STREAM_MAIN = (1024, 512, 256)
 STREAM_BIG = (64, 2048, 32)
+#: phase 8: ranks, frames of 512x512 u16 and of 2048x2048 u32 across them,
+#: stream chunk frames, and the gloo timeout (seconds) of their group
+WORLD = 2
+PAR_MAIN = 256
+PAR_BIG = 4
+PAR_CHUNK = 64
+WORKER_TIMEOUT_S = 120.0
 #: device memory rate of an H100 SXM (NVIDIA's data sheet), for the bounds
 HBM_BYTES_PER_S = 3.35e12
 DTYPES = (np.uint8, np.int8, np.uint16, np.int16, np.uint32, np.int32)
@@ -683,6 +712,356 @@ def _profile_layers(stack: np.ndarray, arch, dev, reps: int = 3):
     return host, device
 
 
+def _parallel_frames():
+    """Phase 8's frames, made alike in every process from one seed:
+    (PAR_MAIN, 512x512) u16 and (PAR_BIG, 2048x2048) u32."""
+    rng = np.random.default_rng(SEED + 8)
+    return (_frames(rng, PAR_MAIN, SIDE * SIDE),
+            _frames(rng, PAR_BIG, BIG[0][0] ** 2, np.uint32,
+                    hot_value=HOT_U32))
+
+
+def _worker(mode: str, rank: int, world: int, port: int, workdir: str) -> int:
+    """One rank of phase 8, on ``cuda:0`` in a gloo group at
+    localhost:`port`. ``shards``: drives (a) and (b), then the stream
+    drill's first run, which rank 1 leaves with ``os._exit(3)`` after
+    chunk 2's checkpoint (rank 0 exits too). ``resume``: the drill resumed
+    and finalized. Prints, as its last line, each drive's launch counters
+    (set to 0 just before it) and wall seconds."""
+    os.environ.update(MASTER_ADDR="localhost", MASTER_PORT=str(port),
+                      RANK=str(rank), WORLD_SIZE=str(world))
+    import torch.distributed as dist
+    from trpx_tpu_torch.ops import FrameSpec
+    from trpx_tpu_torch.parallel import ShardedCodec
+    from trpx_tpu_torch.parallel.distributed import (
+        StreamingShardEncoder,
+        init_from_env,
+        write_run_manifest,
+        write_shard_file,
+    )
+
+    if not init_from_env(timeout_s=WORKER_TIMEOUT_S):
+        raise RuntimeError("no process group from the environment")
+    work = Path(workdir)
+    main_fr, big_fr = _parallel_frames()
+    report = {}
+
+    def drive(name, fn):
+        _zero_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        report[name] = {"seconds": time.perf_counter() - t0,
+                        "launches": _read_counts()}
+
+    def shard_drive(name, frames, side):
+        F = frames.shape[0]
+        lo, hi = rank * F // world, (rank + 1) * F // world
+        spec = FrameSpec.for_dtype(side * side, frames.dtype)
+        codec = ShardedCodec(spec)           # default devices: the card
+        out = work / f"{name}.trpx"
+
+        def run():
+            res = codec.encode_shards(frames[lo:hi], F)
+            write_shard_file(out, res, spec, F, (side, side))
+            if rank == 0:
+                write_run_manifest(out, res, spec, F, (side, side),
+                                   dtype=frames.dtype)
+        drive(name, run)
+
+    if mode == "shards":
+        shard_drive("a", main_fr, SIDE)
+        shard_drive("b", big_fr, BIG[0][0])
+    codec = ShardedCodec(FrameSpec.for_dtype(SIDE * SIDE, np.uint16))
+    F, C = main_fr.shape[0], PAR_CHUNK
+
+    def stream():
+        enc = StreamingShardEncoder(work / "c.trpx", codec, np.uint16,
+                                    dimensions=(SIDE, SIDE))
+        lo = enc.frames_done
+        while lo < F:
+            a, b = lo + rank * C // world, lo + (rank + 1) * C // world
+            enc.add_chunk(main_fr[a:b], C)
+            lo += C
+            if mode == "shards" and lo == 2 * C:
+                return
+        enc.finalize()
+
+    drive("c", stream)
+    print(json.dumps(report), flush=True)
+    if mode == "shards":
+        # preempted right after chunk 2's checkpoint: rank 1 dies hard, the
+        # others leave without a teardown
+        os._exit(3 if rank == 1 else 0)
+    dist.destroy_process_group()
+    return 0
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def _launch_workers(mode: str, workdir: Path, want_rcs) -> tuple:
+    """Phase 8's `WORLD` workers of `mode` on a fresh port, with this
+    process's environment (its cleaned ``CXX`` included); raises unless
+    their exit codes are `want_rcs`. Returns (each rank's report, wall
+    seconds of the launch)."""
+    script = Path(__file__).resolve()
+    port = _free_port()
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, str(script), "--worker", mode, str(r), str(WORLD),
+         str(port), str(workdir)],
+        cwd=script.parent, env=dict(os.environ), stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True) for r in range(WORLD)]
+    try:
+        outs = [p.communicate(timeout=600) for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    wall = time.perf_counter() - t0
+    rcs = tuple(p.returncode for p in procs)
+    if rcs != tuple(want_rcs):
+        raise AssertionError(
+            f"phase 8 {mode} workers exited {rcs}, expected {want_rcs}:\n"
+            + "\n".join(f"rank {r}: {o[-2000:]}\n{e[-4000:]}"
+                        for r, (o, e) in enumerate(outs)))
+    return [json.loads(o.strip().splitlines()[-1]) for o, _ in outs], wall
+
+
+def _expect_route(name: str, got: dict, want: set) -> None:
+    """Raise unless the kernels in `want` launched and no other did."""
+    if min((got[k] for k in want), default=1) < 1 or any(
+            got[k] for k in got if k not in want):
+        raise AssertionError(f"{name} took the wrong kernels: {got}, "
+                             f"expected {sorted(want)}")
+
+
+def _parallel_phase(dev, card: str, workdir: Path) -> dict:
+    """Phase 8 (see the module docstring). Returns the launch counts of
+    every drive, the workers' included."""
+    from trpx_tpu_torch.io.trpx import read_trpx
+    from trpx_tpu_torch.native import codec as ncodec
+    from trpx_tpu_torch.ops import FrameSpec
+    from trpx_tpu_torch.parallel import decode_sharded
+    from trpx_tpu_torch.parallel.distributed import recover_shard
+
+    total = dict.fromkeys(_counters(), 0)
+    main_fr, big_fr = _parallel_frames()
+    side_big = BIG[0][0]
+    frames = {"a": (main_fr, SIDE), "b": (big_fr, side_big),
+              "c": (main_fr, SIDE)}
+    want = {k: ncodec.encode(fr, dimensions=(s, s)).to_bytes()
+            for k, (fr, s) in frames.items() if k != "c"}
+    want["c"] = want["a"]
+    # the pack each rank's shard takes: (a) 128 frames, (b) 2 frames of
+    # 2048x2048, (c) 32 frames a chunk
+    spec = {k: FrameSpec.for_dtype(s * s, fr.dtype)
+            for k, (fr, s) in frames.items()}
+    per_rank = {"a": PAR_MAIN // WORLD, "b": PAR_BIG // WORLD,
+                "c": PAR_CHUNK // WORLD}
+    route = {k: {_route(spec[k], per_rank[k])[0]} for k in frames}
+    if route["b"] != {"pack_tiled"} or route["a"] != {"pack"}:
+        raise AssertionError(f"phase 8 routes changed: {route}")
+
+    def take(run, reports):
+        for k, rep in reports[0].items():
+            for r, ranks in enumerate(reports):
+                _expect_route(f"phase 8 {run} drive {k} rank {r}",
+                              ranks[k]["launches"], route[k])
+                for kk, v in ranks[k]["launches"].items():
+                    total[kk] += v
+
+    reports, wall1 = _launch_workers("shards", workdir, (0, 3))
+    take("first", reports)
+    for k in ("a", "b"):
+        if (workdir / f"{k}.trpx").read_bytes() != want[k]:
+            raise AssertionError(f"phase 8 ({k}): the shared file differs "
+                                 f"from the native codec's bytes")
+    man = json.loads((workdir / "c.trpx.manifest").read_text())
+    if man["frames_done"] != 2 * PAR_CHUNK or (workdir / "c.trpx").exists():
+        raise AssertionError(f"phase 8 (c): manifest after the kill {man}")
+    with open(workdir / "c.trpx.part", "r+b") as f:
+        f.seek(man["payload_bytes"])
+        f.write(b"\xde\xad" * 500_000)      # a torn tail past the checkpoint
+    resumed, wall2 = _launch_workers("resume", workdir, (0, 0))
+    take("resumed", resumed)
+    if (workdir / "c.trpx").read_bytes() != want["c"]:
+        raise AssertionError("phase 8 (c): the resumed stream differs from "
+                             "the native codec's bytes")
+
+    def walls(reps, k):
+        return "/".join(f"{r[k]['seconds'] * 1e3:.1f}" for r in reps)
+
+    print(f"phase 8 parallel ({card}; {WORLD} gloo processes time-slicing ONE "
+          f"card, so no scaling figure): (a) {PAR_MAIN}x{SIDE}x{SIDE} u16 "
+          f"encode_shards + write_shard_file, shared file == native codec, "
+          f"ms per rank {walls(reports, 'a')}; (b) {PAR_BIG}x{side_big}x"
+          f"{side_big} u32 (tiled pack per shard) == native, ms "
+          f"{walls(reports, 'b')}; (c) StreamingShardEncoder {PAR_MAIN} "
+          f"frames in {PAR_CHUNK}-frame chunks, rank 1 killed after chunk 2 "
+          f"(ms {walls(reports, 'c')}), torn tail, resumed and finalized "
+          f"(ms {walls(resumed, 'c')}) == native; worker launches of "
+          f"{wall1:.1f} s and {wall2:.1f} s wall; launches "
+          + "; ".join(f"{k} rank {r} {rep[k]['launches']}"
+                      for k in ("a", "b") for r, rep in enumerate(reports)),
+          flush=True)
+    # (d) recover_shard of a zeroed back half, in this process on the card
+    src = workdir / "a.trpx"
+    out = workdir / "d.trpx"
+    shutil.copy(Path(f"{src}.runmanifest"), Path(f"{out}.runmanifest"))
+    blob = bytearray(want["a"])
+    sizes = json.loads(Path(f"{out}.runmanifest").read_text())["nbytes"]
+    lo = PAR_MAIN // 2
+    start = len(blob) - sum(sizes) + sum(sizes[:lo])
+    blob[start:] = bytes(len(blob) - start)
+    out.write_bytes(bytes(blob))
+    _zero_counts()
+    t0 = time.perf_counter()
+    recover_shard(out, main_fr[lo:], lo)
+    t_rec = time.perf_counter() - t0
+    got = _read_counts()
+    _expect_route("phase 8 recover_shard", got,
+                  {_route(spec["a"], PAR_MAIN - lo)[0]})
+    for k, v in got.items():
+        total[k] += v
+    if out.read_bytes() != want["a"]:
+        raise AssertionError("phase 8 (d): recover_shard did not restore "
+                             "the native codec's bytes")
+    # (e) decode_sharded of both files on the card
+    msg = []
+    for k in ("a", "b"):
+        fr, s = frames[k]
+        arch = read_trpx(workdir / f"{k}.trpx")
+        _zero_counts()
+        t0 = time.perf_counter()
+        back = decode_sharded(arch, fr.dtype)
+        t_dec = time.perf_counter() - t0
+        got = _read_counts()
+        _expect_route(f"phase 8 decode_sharded ({k})", got,
+                      {_route(spec[k], fr.shape[0])[1]})
+        for kk, v in got.items():
+            total[kk] += v
+        if back.shape != fr.shape or not np.array_equal(back, fr):
+            raise AssertionError(f"phase 8 (e): decode_sharded of ({k}) "
+                                 f"lost pixels")
+        msg.append(f"{fr.shape[0]}x{s}x{s} {fr.dtype} {t_dec * 1e3:.1f} ms "
+                   f"{got}")
+    print(f"phase 8 in this process ({card}): (d) recover_shard of frames "
+          f"{lo}-{PAR_MAIN - 1} == native, {t_rec * 1e3:.1f} ms; (e) "
+          f"decode_sharded lossless: " + ", ".join(msg), flush=True)
+    return total
+
+
+def _cli_phase(rng, card: str, workdir: Path) -> dict:
+    """Phase 9 (see the module docstring). Returns the launch counts of
+    its steps."""
+    import contextlib
+    import io
+
+    from trpx_tpu_torch.cli.main import main as cli
+    from trpx_tpu_torch.io import read_tiff, write_tiff
+    from trpx_tpu_torch.native import codec as ncodec
+    from trpx_tpu_torch.ops import FrameSpec
+
+    total = dict.fromkeys(_counters(), 0)
+    side_big = BIG[0][0]
+    stacks = {
+        "m512": _frames(rng, 64, SIDE * SIDE).reshape(64, SIDE, SIDE),
+        "m2048": _frames(rng, 4, side_big ** 2, np.uint32,
+                         hot_value=HOT_U32).reshape(4, side_big, side_big)}
+    want = {}
+    for name, st in stacks.items():
+        write_tiff(st, workdir / f"{name}.tif")
+        F, h, w = st.shape
+        want[name] = ncodec.encode(st.reshape(F, -1),
+                                   dimensions=(w, h)).to_bytes()
+    specs = {name: FrameSpec.for_dtype(st.shape[1] * st.shape[2], st.dtype)
+             for name, st in stacks.items()}
+    tifs = [str(workdir / f"{n}.tif") for n in stacks]
+
+    def run(step, argv, routes):
+        """One CLI call with the counters set to 0 just before and read
+        just after; raises on a nonzero exit or any error line."""
+        _zero_counts()
+        out, err = io.StringIO(), io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+            rc = cli(argv)
+        wall = time.perf_counter() - t0
+        got = _read_counts()
+        if rc != 0 or err.getvalue():
+            raise AssertionError(f"phase 9 {step}: rc {rc}\n{out.getvalue()}"
+                                 f"\n{err.getvalue()}")
+        _expect_route(f"phase 9 {step}", got, routes)
+        for k, v in got.items():
+            total[k] += v
+        return wall, got, out.getvalue()
+
+    def check_outputs(step, d, suffix):
+        for name, st in stacks.items():
+            p = d / f"{name}{suffix}"
+            if suffix == ".trpx":
+                ok = p.read_bytes() == want[name]
+            else:
+                back = read_tiff(p).as_array()
+                ok = back.dtype == st.dtype and np.array_equal(back, st)
+            if not ok:
+                raise AssertionError(f"phase 9 {step}: {p.name} differs")
+
+    packs = {_route(s, F)[0] for s, F in ((specs["m512"], 64),
+                                          (specs["m2048"], 4))}
+    unpacks = {_route(s, F)[1] for s, F in ((specs["m512"], 64),
+                                            (specs["m2048"], 4))}
+    C = 32
+    s_packs = {_route(specs["m512"], C)[0], _route(specs["m2048"], 4)[0]}
+    s_unpacks = {_route(specs["m512"], C)[1], _route(specs["m2048"], 4)[1]}
+    lines = []
+    for step, argv, routes, d, suffix in (
+            ("encode", ["encode", *tifs, "--out-dir", "enc"], packs, "enc",
+             ".trpx"),
+            ("decode", ["decode", *(str(workdir / "enc" / f"{n}.trpx")
+                                    for n in stacks), "--out-dir", "dec"],
+             unpacks, "dec", ".tif"),
+            ("encode --stream", ["encode", *tifs, "--stream",
+                                 "--chunk-frames", str(C), "--out-dir",
+                                 "senc"], s_packs, "senc", ".trpx"),
+            ("decode --stream", ["decode", *(str(workdir / "senc" / f"{n}"
+                                                 ".trpx") for n in stacks),
+                                 "--stream", "--chunk-frames", str(C),
+                                 "--out-dir", "sdec"], s_unpacks, "sdec",
+             ".tif")):
+        argv = [str(workdir / a) if a in ("enc", "dec", "senc", "sdec")
+                else a for a in argv]
+        wall, got, _ = run(step, argv, routes)
+        check_outputs(step, workdir / d, suffix)
+        lines.append(f"{step} {wall * 1e3:.1f} ms {got}")
+    trpx = [str(workdir / "enc" / f"{n}.trpx") for n in stacks]
+    _, _, text = run("verify", ["verify", *trpx], set())
+    if text.count(": OK") != len(trpx):
+        raise AssertionError(f"phase 9 verify: {text}")
+    _, _, text = run("info", ["info", *trpx], set())
+    if f"frames           {stacks['m512'].shape[0]}" not in text:
+        raise AssertionError(f"phase 9 info: {text}")
+    spec = FrameSpec.for_dtype(SIDE * SIDE, np.uint16)
+    wall, got, text = run("bench", ["bench", "--frames", "64", "--e2e"],
+                          {_route(spec, 1)[0], _route(spec, 64)[0],
+                           _route(spec, 64)[1]})
+    print(f"phase 9 CLI ({card}; in process, default device): "
+          f"{'; '.join(lines)}; outputs == native codec bytes / the input "
+          f"pixels; verify and info ok; bench {wall:.2f} s {got}:",
+          flush=True)
+    print(text.rstrip(), flush=True)
+    return total
+
+
 def main() -> int:
     t_start = time.perf_counter()
     # phase 1: the card
@@ -1024,6 +1403,16 @@ def main() -> int:
     for k, v in streamed.items():
         launches[k] += v
 
+    # phase 8: the parallel path, two gloo processes on the card
+    with tempfile.TemporaryDirectory(dir=work) as d:
+        for k, v in _parallel_phase(dev, card, Path(d)).items():
+            launches[k] += v
+
+    # phase 9: the CLI on the card, in this process
+    with tempfile.TemporaryDirectory(dir=work) as d:
+        for k, v in _cli_phase(rng, card, Path(d)).items():
+            launches[k] += v
+
     sources = {"pack": ("pack.cu", "trpx_tpu/ops/pallas_pack.py:712"),
                "unpack": ("unpack.cu", "trpx_tpu/ops/pallas_unpack.py:626"),
                "pack_tiled": ("pack_tiled.cu",
@@ -1049,4 +1438,7 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--worker"]:
+        a = sys.argv[2:]
+        sys.exit(_worker(a[0], int(a[1]), int(a[2]), int(a[3]), a[4]))
     sys.exit(main())

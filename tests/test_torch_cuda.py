@@ -434,3 +434,40 @@ def test_kernel_rejects_non_contiguous_input(cuda):
                     device=cuda).view(torch.uint16).T
     with pytest.raises(ValueError):
         encode_batch(spec, x)
+
+
+def test_two_process_encode_shards_on_card(cuda, tmp_path):
+    """Two gloo ranks on the one card encode their shards
+    (``ShardedCodec.encode_shards``) into one shared file
+    (``write_shard_file``): the native codec's bytes, through the pack
+    kernel."""
+    from test_torch_multiprocess import last_json, launch, shard_frames
+
+    out = tmp_path / "multi.trpx"
+    runs = launch("shard", out, device="cuda")
+    for rc, o, e in runs:
+        assert rc == 0, f"worker failed:\n{o}\n{e}"
+        assert last_json(o)["launches"]["pack"] >= 1
+    assert out.read_bytes() == ncodec.encode(shard_frames()).to_bytes()
+
+
+def test_cli_default_device_on_card(cuda, tmp_path):
+    """The CLI's default device is the card: encode through the pack
+    kernel to the native codec's bytes, decode through the unpack back to
+    the TIFF's pixels."""
+    from trpx_tpu_torch.cli.main import main
+    from trpx_tpu_torch.io import read_tiff, write_tiff
+
+    fr = _frames(np.uint16, 64 * 64, 5, F=6).reshape(6, 64, 64)
+    src = tmp_path / "m.tif"
+    write_tiff(fr, src)
+    encode_batch.launches = decode_batch_tiled.launches = 0
+    assert main(["encode", str(src)]) == 0
+    assert (tmp_path / "m.trpx").read_bytes() == ncodec.encode(
+        fr.reshape(6, -1), dimensions=(64, 64)).to_bytes()
+    assert encode_batch.launches >= 1
+    assert main(["decode", str(tmp_path / "m.trpx"), "--out-dir",
+                 str(tmp_path / "o")]) == 0
+    np.testing.assert_array_equal(read_tiff(tmp_path / "o" / "m.tif")
+                                  .as_array(), fr)
+    assert decode_batch_tiled.launches >= 1

@@ -243,8 +243,10 @@ def test_finalize_rejects_corrupt_state_before_publishing(tmp_path):
 
 def test_device_backend_without_cuda_raises(tmp_path, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
-    with pytest.raises(RuntimeError, match="needs a card"):
-        StreamingEncoder(tmp_path / "n.trpx", nvalues=10, dtype=np.uint16)
+    for device in (None, True, "cuda"):
+        with pytest.raises(RuntimeError, match=r"device='cpu'.*device=False"):
+            StreamingEncoder(tmp_path / "n.trpx", nvalues=10,
+                             dtype=np.uint16, device=device)
     assert not (tmp_path / "n.trpx.manifest").exists()
     with pytest.raises(ValueError, match="backend"):
         StreamingEncoder(tmp_path / "n.trpx", nvalues=10, dtype=np.uint16,

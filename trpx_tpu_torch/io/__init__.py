@@ -1,7 +1,15 @@
-"""Host I/O layer of the port: ``.trpx`` file assembly, the ``.trpx.idx``
-sidecar and frame subsets (a copy of ``trpx_tpu/io/trpx.py``; the TIFF
-container comes with the CLI)."""
+"""Host I/O layer of the port: the greyscale TIFF container
+(``io/tiff.py``), ``.trpx`` file assembly, the ``.trpx.idx`` sidecar and
+frame subsets (``io/trpx.py``); copies of the JAX package's ``io``."""
 
+from .tiff import (
+    TiffError,
+    TiffStack,
+    TiffStream,
+    TiffWriter,
+    read_tiff,
+    write_tiff,
+)
 from .trpx import (
     cached_frame_offsets,
     read_trpx,
@@ -11,6 +19,12 @@ from .trpx import (
 )
 
 __all__ = [
+    "TiffError",
+    "TiffStack",
+    "TiffStream",
+    "TiffWriter",
+    "read_tiff",
+    "write_tiff",
     "cached_frame_offsets",
     "read_trpx",
     "subset_frames",

@@ -92,10 +92,12 @@ class StreamingEncoder:
     the last checkpointed chunk (``frames_done`` says where the caller's
     input restarts).
 
-    ``backend="device"`` encodes on the torch ``device`` (default
-    ``"cuda"``; ``"cpu"`` runs the kernels' plain versions) and raises if
-    CUDA is asked for and missing; ``backend="host"`` encodes with the
-    native C++ codec and any integer dtype.
+    ``backend="device"`` encodes on the torch ``device``, resolved as
+    ``api.compress`` resolves it: None (the default) and True mean the
+    card and raise RuntimeError without one, a torch device or its name
+    runs there (``"cpu"``: the kernels' plain versions); ``device=False``
+    is the host codec, which ``backend="host"`` selects. ``backend="host"``
+    encodes with the native C++ codec and any integer dtype.
     """
 
     def __init__(
@@ -107,7 +109,7 @@ class StreamingEncoder:
         dimensions: tuple[int, ...] = (),
         sync_every_chunk: bool = True,
         backend: str = "device",
-        device="cuda",
+        device=None,
     ) -> None:
         if backend not in ("device", "host"):
             raise ValueError(f"backend must be 'device' or 'host', got {backend!r}")
@@ -123,13 +125,11 @@ class StreamingEncoder:
         self.spec = self.device = self._stream = None
         if backend == "device":
             self.spec = FrameSpec.for_dtype(nvalues, self.dtype, block)
-            self.device = torch.device(device)
+            self.device = _api._torch_device(device)
+            if self.device is None:
+                raise ValueError("device=False is the host codec: pass "
+                                 "backend='host'")
             if self.device.type == "cuda":
-                if not torch.cuda.is_available():
-                    raise RuntimeError(
-                        "StreamingEncoder on CUDA needs a card: pass "
-                        "device='cpu' for the plain versions or "
-                        "backend='host' for the native codec")
                 self._stream = torch.cuda.Stream(self.device)
         #: two staging buffers (pinned on CUDA) and the event of the copy
         #: to the device that last read each
