@@ -85,7 +85,23 @@ the tiled unpack. Phases, one line each (more for phases 5 and 6):
    stack (written with the port's ``write_tiff``), equal to the native
    codec's bytes; ``decode`` back to the same pixels; the same through
    ``--stream``; ``verify``, ``info``; ``bench --frames 64 --e2e``. Each
-   step's launch counters are checked against its routes.
+   step's launch counters are checked against its routes;
+10. the bench and the tools, each drive with the launch counters set to 0
+   just before it and checked against its routes just after: (a)
+   ``trpx_tpu_torch.bench`` at its full batches (512 x 512x512 u16, 32 x
+   2048x2048 and 8 x 4096x4096 u32), with ``BENCH_DISTINCT`` resident
+   batches and ``BENCH_REPS`` calls on each, its guards (archive bytes ==
+   native codec, decode == frames) passing first; its JSON line, with the
+   keys of ``bench.py``'s, beside the card line; (b) the differential
+   campaign's smoke tier on the default device (the card): every row of
+   ``SMOKE_TRIALS`` and ``ROUTE_TRIALS`` byte for byte against pycodec
+   (rows of at most 3.2M values) and the native codec, each row's counters
+   against the route ``FrameSpec`` gives it (the tiled pack on the 1-3
+   frame 2048x2048/4096x4096 rows); (c) ``graft_entry.entry()``'s pack
+   equal to ``encode_batch_plain`` on the words each frame defines, then
+   ``dryrun_multichip(2)``, two ranks on ``cuda:0``, each reporting its
+   counters; (d) ``tools.scaling`` on the card(s): the one-card rate and,
+   with one card, a null scaling efficiency.
 
 It then prints the card line, a JSON line of per-kernel results and, last,
 ``{"ok": true, "device": {...}}``. Any failure exits non-zero before that
@@ -133,6 +149,11 @@ PAR_MAIN = 256
 PAR_BIG = 4
 PAR_CHUNK = 64
 WORKER_TIMEOUT_S = 120.0
+#: phase 10(a): distinct resident batches of each bench configuration and
+#: timed calls on each (``python -m trpx_tpu_torch.bench`` alone keeps
+#: ``bench.py``'s 9 / 5 batches and 7 reps)
+BENCH_DISTINCT = 3
+BENCH_REPS = 3
 #: device memory rate of an H100 SXM (NVIDIA's data sheet), for the bounds
 HBM_BYTES_PER_S = 3.35e12
 DTYPES = (np.uint8, np.int8, np.uint16, np.int16, np.uint32, np.int32)
@@ -1062,6 +1083,138 @@ def _cli_phase(rng, card: str, workdir: Path) -> dict:
     return total
 
 
+def _bench_phase(dev, card: str) -> dict:
+    """Phase 10(a): the bench at its full batches (``BENCH_DISTINCT``
+    batches, ``BENCH_REPS`` calls on each). Returns its launch counts."""
+    from trpx_tpu_torch import bench
+    from trpx_tpu_torch.ops import FrameSpec
+
+    _zero_counts()
+    t0 = time.perf_counter()
+    r512 = bench.bench_512(512, BENCH_REPS, n2=BENCH_DISTINCT)
+    big = {edge: bench.bench_big(BENCH_REPS, edge, F, n2=BENCH_DISTINCT)
+           for edge, F, _ref in bench.BIG}
+    wall = time.perf_counter() - t0
+    got = _read_counts()
+    # the routes of each configuration's batches, and the tiled unpack of
+    # the pipelined decode's chunks (128, 8 and 2 frames)
+    configs = [(512, np.uint16, 512)] + [(e, np.uint32, F)
+                                         for e, F, _ in bench.BIG]
+    want = {"unpack_tiled"}.union(*(
+        _route(FrameSpec.for_dtype(e * e, dt), F) for e, dt, F in configs))
+    _expect_route("phase 10(a) bench", got, want)
+    summary = bench.summary(r512, big)
+    for name, r in (("512x512 u16", r512),
+                    *((f"{e}x{e} u32", big[e]) for e in big)):
+        print(f"phase 10(a) {bench.describe(name, r, dev)}", flush=True)
+    print(f"phase 10(a) bench ({BENCH_DISTINCT} distinct batches, "
+          f"{BENCH_REPS} reps; guards passed: archives == native codec, "
+          f"decodes == frames) {wall:.1f} s, launches {got}; card, then "
+          f"its JSON:", flush=True)
+    print(card, flush=True)
+    print(json.dumps(summary), flush=True)
+    return got
+
+
+def _campaign_phase(dev) -> dict:
+    """Phase 10(b): the differential campaign's smoke tier on the default
+    device, each row's counters against its route. Returns the launch
+    counts of all rows."""
+    from trpx_tpu_torch.ops import FrameSpec
+    from trpx_tpu_torch.tools import differential_campaign as camp
+
+    total = dict.fromkeys(_counters(), 0)
+    routes = [_route(FrameSpec.for_dtype(r[2], r[0], r[3]), r[1])
+              for r in camp.ROUTE_TRIALS]
+    if routes != [("pack_tiled", "unpack_tiled")] * 3 + [
+            ("pack", "unpack_tiled"), ("pack", "unpack_tiled"),
+            ("pack", "unpack")]:
+        raise AssertionError(f"phase 10(b): the route rows no longer "
+                             f"straddle the routes: {routes}")
+    t0 = time.perf_counter()
+    lines = []
+    for row in camp.SMOKE_TRIALS + camp.ROUTE_TRIALS:
+        vals, block = camp.smoke_values(row)
+        F, n = vals.shape
+        name = f"{F}x{n} {vals.dtype} b{block} k{row[4]} seed {row[5]}"
+        spec = FrameSpec.for_dtype(n, vals.dtype, block)
+        _zero_counts()
+        r0 = time.perf_counter()
+        camp.run_trial(vals, block, dev)
+        got = _read_counts()
+        _expect_route(f"phase 10(b) {name}", got, set(_route(spec, F)))
+        for k, v in got.items():
+            total[k] += v
+        lines.append(f"{name} {time.perf_counter() - r0:.1f} s "
+                     f"{'+'.join(_route(spec, F))}")
+    print(f"phase 10(b) campaign smoke tier on {dev}: "
+          f"{len(camp.SMOKE_TRIALS)} smoke rows + {len(camp.ROUTE_TRIALS)} "
+          f"route rows byte for byte (pycodec up to "
+          f"{camp.PYCODEC_MAX_VALUES:,} values, the native codec on all), "
+          f"lossless, each row on its route, {time.perf_counter() - t0:.1f} "
+          f"s, launches {total}: " + "; ".join(lines), flush=True)
+    return total
+
+
+def _entry_phase(dev) -> dict:
+    """Phase 10(c): ``entry()``'s pack against ``encode_batch_plain``,
+    then ``dryrun_multichip(2)`` on the card. Returns the launch counts,
+    the ranks' included."""
+    from trpx_tpu_torch.graft_entry import dryrun_multichip, entry
+    from trpx_tpu_torch.ops import FrameSpec, encode_batch_plain
+    from trpx_tpu_torch.ops.cuda_pack import stream_words
+
+    spec = FrameSpec.for_dtype(512 * 512, np.uint16)
+    _zero_counts()
+    fn, (frames,) = entry()
+    words, bits, maxw = fn(frames)
+    got = _read_counts()
+    _expect_route("phase 10(c) entry", got, {_route(spec, len(frames))[0]})
+    pw, pb, pm = encode_batch_plain(spec, frames)
+    e = max(_diff(stream_words(words, bits), pw), _diff(bits, pb),
+            _diff(maxw, pm))
+    if e or frames.device.type != "cuda":
+        raise AssertionError(f"phase 10(c): entry()'s pack != plain (max abs "
+                             f"err {e}) or off the card ({frames.device})")
+    total = dict(got)
+    t0 = time.perf_counter()
+    ranks = dryrun_multichip(2)
+    wall = time.perf_counter() - t0
+    for r in ranks:
+        # shard encodes of 3-5 tiny frames, their sharded decodes, and the
+        # tiled check's explicit tiled pack and unpack
+        _expect_route(f"phase 10(c) dryrun rank {r['rank']}", r["launches"],
+                      {"pack", "pack_tiled", "unpack_tiled"})
+        for k, v in r["launches"].items():
+            total[k] += v
+    print(f"phase 10(c) entry(): {tuple(frames.shape)} {frames.dtype} on "
+          f"{frames.device}, pack == encode_batch_plain on the defined words "
+          f"(exact), launches {got}; dryrun_multichip(2) on cuda:0 passed in "
+          f"{wall:.1f} s, rank launches "
+          + "; ".join(f"{r['rank']}: {r['launches']}" for r in ranks),
+          flush=True)
+    return total
+
+
+def _scaling_phase() -> dict:
+    """Phase 10(d): the scaling tool on every card; with one card a null
+    efficiency. Returns its launch counts."""
+    from trpx_tpu_torch.parallel import default_devices
+    from trpx_tpu_torch.tools import scaling
+
+    devices = default_devices()
+    _zero_counts()
+    res = scaling.run(devices)
+    got = _read_counts()
+    _expect_route("phase 10(d) scaling", got, {"pack"})
+    if len(devices) == 1 and (res["scaling_efficiency"] is not None
+                              or res.get("reason") != "one card"):
+        raise AssertionError(f"phase 10(d): one card, but {res}")
+    print(f"phase 10(d) scaling ({len(devices)} card(s)), launches {got}: "
+          f"{json.dumps(res)}", flush=True)
+    return got
+
+
 def main() -> int:
     t_start = time.perf_counter()
     # phase 1: the card
@@ -1412,6 +1565,17 @@ def main() -> int:
     with tempfile.TemporaryDirectory(dir=work) as d:
         for k, v in _cli_phase(rng, card, Path(d)).items():
             launches[k] += v
+
+    # phase 10: the bench, the campaign's smoke tier, the entry points and
+    # the scaling tool, on the default device
+    from trpx_tpu_torch.api import _torch_device
+
+    t10 = time.perf_counter()
+    for got in (_bench_phase(dev, card), _campaign_phase(_torch_device(None)),
+                _entry_phase(dev), _scaling_phase()):
+        for k, v in got.items():
+            launches[k] += v
+    print(f"phase 10 {time.perf_counter() - t10:.1f} s", flush=True)
 
     sources = {"pack": ("pack.cu", "trpx_tpu/ops/pallas_pack.py:712"),
                "unpack": ("unpack.cu", "trpx_tpu/ops/pallas_unpack.py:626"),

@@ -471,3 +471,94 @@ def test_cli_default_device_on_card(cuda, tmp_path):
     np.testing.assert_array_equal(read_tiff(tmp_path / "o" / "m.tif")
                                   .as_array(), fr)
     assert decode_batch_tiled.launches >= 1
+
+
+def _launches():
+    return {"pack": encode_batch.launches,
+            "pack_tiled": encode_batch_tiled.launches,
+            "unpack": decode_batch.launches,
+            "unpack_tiled": decode_batch_tiled.launches}
+
+
+def _zero_launches():
+    encode_batch.launches = encode_batch_tiled.launches = 0
+    decode_batch.launches = decode_batch_tiled.launches = 0
+
+
+def test_bench_on_card(cuda):
+    """The bench's guards pass on the card (archives equal the native
+    codec's bytes, decodes return the frames) and its batches take their
+    routes: 16 x 512x512 u16 the one-pass pack and the tiled unpack, 2 x
+    2048x2048 u32 both tiled kernels."""
+    from trpx_tpu_torch import bench
+
+    _zero_launches()
+    r = bench.bench_512(16, 1, cuda, n2=2)
+    assert (r["pack"], r["unpack"]) == ("encode_batch", "decode_batch_tiled")
+    rb = bench.bench_big(1, 2048, 2, cuda, n2=2)
+    assert (rb["pack"], rb["unpack"]) == ("encode_batch_tiled",
+                                          "decode_batch_tiled")
+    got = _launches()
+    assert got["pack"] >= 1 and got["pack_tiled"] >= 1 \
+        and got["unpack_tiled"] >= 1 and got["unpack"] == 0
+    for res in (r, rb):
+        assert all(res[k] > 0 for k in ("enc_fps", "dec_fps", "walk_fps",
+                                        "foreign_fps", "pipelined_fps"))
+
+
+@pytest.mark.parametrize("row", range(6))
+def test_campaign_route_rows_on_card(cuda, row):
+    """The campaign's route rows on the card: byte for byte, lossless, and
+    each on the route ``FrameSpec`` gives it."""
+    from trpx_tpu_torch.tools import differential_campaign as camp
+
+    vals, block = camp.smoke_values(camp.ROUTE_TRIALS[row])
+    spec = FrameSpec.for_dtype(vals.shape[1], vals.dtype, block)
+    F = vals.shape[0]
+    want = {"pack_tiled" if spec.tiled_pack(F) else "pack",
+            "unpack_tiled" if spec.tiled(F) else "unpack"}
+    _zero_launches()
+    camp.run_trial(vals, block, cuda)
+    got = _launches()
+    assert {k for k, v in got.items() if v} == want
+
+
+def test_entry_on_card(cuda):
+    """``entry()`` runs the pack kernel on the card, equal to its plain
+    version on the words each frame defines."""
+    from trpx_tpu_torch.graft_entry import entry
+
+    fn, (frames,) = entry()
+    assert frames.is_cuda
+    before = encode_batch.launches
+    got = fn(frames)
+    assert encode_batch.launches == before + 1
+    _same_pack(got, encode_batch_plain(FrameSpec.for_dtype(512 * 512,
+                                                           np.uint16),
+                                       frames))
+
+
+def test_dryrun_multichip_on_card(cuda):
+    """Two ranks share the card; each runs the pack, the tiled pack and
+    the tiled unpack."""
+    from trpx_tpu_torch.graft_entry import dryrun_multichip
+
+    ranks = dryrun_multichip(2)
+    assert [r["rank"] for r in ranks] == [0, 1]
+    for r in ranks:
+        got = r["launches"]
+        assert got["pack"] and got["pack_tiled"] and got["unpack_tiled"]
+
+
+def test_scaling_on_card(cuda):
+    """The scaling tool on the card(s): a positive one-card rate; with one
+    card, a null efficiency."""
+    from trpx_tpu_torch.parallel import default_devices
+    from trpx_tpu_torch.tools import scaling
+
+    devices = default_devices()
+    res = scaling.run(devices, frames_per_dev=8, reps=2)
+    assert res["frames_per_s"]["1"] > 0
+    if len(devices) == 1:
+        assert res["scaling_efficiency"] is None
+        assert res["reason"] == "one card"

@@ -9,6 +9,8 @@ import subprocess
 import sys
 from pathlib import Path
 
+import pytest
+
 REPO = Path(__file__).resolve().parent.parent
 
 _CODE = """
@@ -47,3 +49,29 @@ def test_port_and_chip_smoke_load_nothing_of_the_jax_package():
     assert {"trpx_tpu_torch.format.pycodec", "trpx_tpu_torch.io.trpx",
             "trpx_tpu_torch.native.codec", "chip_smoke"} <= set(
                 got["loaded"])
+
+
+#: the modules that port the repo's entry points and measuring tools
+ENTRY_MODULES = ["trpx_tpu_torch.bench", "trpx_tpu_torch.graft_entry",
+                 "trpx_tpu_torch.tools.differential_campaign",
+                 "trpx_tpu_torch.tools.scaling",
+                 "trpx_tpu_torch.tools.walk_bench"]
+
+
+def test_entry_modules_are_walked():
+    assert set(ENTRY_MODULES) <= set(_imported()["walked"])
+
+
+@pytest.mark.parametrize("name", ENTRY_MODULES)
+def test_entry_module_alone_loads_nothing_of_the_jax_package(name):
+    """Each entry module imported on its own, in a fresh interpreter."""
+    code = (f"import importlib, json, sys\n"
+            f"importlib.import_module({name!r})\n"
+            f"print(json.dumps(sorted(sys.modules)))\n")
+    r = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                       capture_output=True, text=True, timeout=300)
+    assert r.returncode == 0, r.stderr
+    loaded = json.loads(r.stdout.strip().splitlines()[-1])
+    assert name in loaded
+    assert [m for m in loaded if m.split(".")[0] in ("jax", "trpx_tpu")] \
+        == []

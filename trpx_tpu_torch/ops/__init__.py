@@ -21,6 +21,8 @@ from .coding import (  # noqa: F401
     encode_collect,
     encode_dispatch,
     narrow_values,
+    pack_kernel,
+    unpack_kernel,
     validate_tables,
     walk_archive,
 )

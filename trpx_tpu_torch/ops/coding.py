@@ -177,6 +177,20 @@ class FrameSpec:
         return spec
 
 
+def pack_kernel(spec: FrameSpec, frames: int):
+    """The pack wrapper an encode of `frames` such frames takes:
+    ``encode_batch_tiled`` when ``spec.tiled_pack(frames)``, else
+    ``encode_batch``."""
+    return encode_batch_tiled if spec.tiled_pack(frames) else encode_batch
+
+
+def unpack_kernel(spec: FrameSpec, frames: int):
+    """The unpack wrapper a decode of `frames` such frames takes:
+    ``decode_batch_tiled`` when ``spec.tiled(frames)``, else
+    ``decode_batch``."""
+    return decode_batch_tiled if spec.tiled(frames) else decode_batch
+
+
 def _pad_batch(frames: np.ndarray, spec: FrameSpec) -> np.ndarray:
     """Zero-pad each frame to the block grid (n_padded values)."""
     if frames.shape[1] == spec.n_padded:
@@ -270,8 +284,7 @@ def encode_dispatch(spec: FrameSpec, x: torch.Tensor,
     bit counts and widths back (into pinned memory when ``pin``). Returns
     without waiting for the device."""
     with record_function("trpx.encode.kernel"):
-        words, bits, maxw = (encode_batch_tiled if spec.tiled_pack(len(x))
-                             else encode_batch)(spec, x)
+        words, bits, maxw = pack_kernel(spec, len(x))(spec, x)
     with record_function("trpx.encode.d2h"):
         host = (_host_copy(bits, pin), _host_copy(maxw, pin))
         return _in_flight(words, host, pin, x.device)
@@ -513,8 +526,7 @@ def decode_dispatch(spec: FrameSpec, words: torch.Tensor,
         x = words.to(device, non_blocking=True)
         w = widths.to(device, non_blocking=True)
     with record_function("trpx.decode.kernel"):
-        out = (decode_batch_tiled if spec.tiled(len(x)) else decode_batch)(
-            spec, x, w, decoded_dtype(spec))
+        out = unpack_kernel(spec, len(x))(spec, x, w, decoded_dtype(spec))
     with record_function("trpx.decode.d2h"):
         host = (_host_copy(out, pin),) if fetch else ()
         return _in_flight(out, host, pin, device)
