@@ -63,7 +63,7 @@ def test_generators_agree_with_the_jax_tools(row):
 @pytest.mark.parametrize("fixed", [False, True])
 def test_random_trials_agree_with_the_jax_tools(fixed):
     """The same master seed draws the same trials (shapes from
-    ``DEVICE_SHAPES`` with ``--fixed-shapes``, as the JAX device soak)."""
+    ``DEVICE_SHAPES`` in a device soak, in both tools)."""
     master = np.random.default_rng(7)
     for _ in range(40):
         seed = int(master.integers(0, 2**31))
@@ -117,15 +117,21 @@ def test_route_rows_straddle_the_routes(row, route):
     assert got == route
 
 
+#: the palette's shapes of at most 8,192 values: its 1M- and 3.2M-value
+#: frames spend seconds each in pycodec, and the smoke rows hold them
+_SMALL_SHAPES = [s for s in camp.DEVICE_SHAPES if s[0] * s[1] <= 8192]
+
+
 def test_random_soak_on_the_cpu(monkeypatch, capsys):
+    monkeypatch.setattr(camp, "DEVICE_SHAPES", _SMALL_SHAPES)
     monkeypatch.setenv("SEED", "11")
     assert camp.main(["200", "--device", "cpu"]) == 0
     assert "CAMPAIGN DONE: 200 trials, 0 failures" in capsys.readouterr().out
 
 
 def test_fixed_shapes_soak_on_the_cpu(monkeypatch, capsys):
-    """``--fixed-shapes`` draws from ``DEVICE_SHAPES`` (this seed's first
-    four trials are its small shapes)."""
+    """A device soak draws its shapes from ``DEVICE_SHAPES``, as the JAX
+    tool's does (this seed's first four trials are its small shapes)."""
     seen = []
     real = camp.run_trial
 
@@ -135,7 +141,7 @@ def test_fixed_shapes_soak_on_the_cpu(monkeypatch, capsys):
 
     monkeypatch.setattr(camp, "run_trial", spy)
     monkeypatch.setenv("SEED", "1")
-    assert camp.main(["4", "--device", "cpu", "--fixed-shapes"]) == 0
+    assert camp.main(["4", "--device", "cpu"]) == 0
     assert "4 trials, 0 failures" in capsys.readouterr().out
     assert [(F, n, b) for (F, n), b in seen] == [
         (2, 4096, 12), (2, 4096, 12), (3, 144, 12), (1, 144, 12)]
@@ -145,15 +151,24 @@ def test_fixed_shapes_soak_on_the_cpu(monkeypatch, capsys):
 
 def test_host_soak_touches_no_device(monkeypatch, capsys):
     """Without ``--device`` or ``--smoke`` the soak holds the host codecs
-    only, as the JAX tool does without ``--device``."""
+    only, on random shapes, as the JAX tool does without ``--device``."""
     def no_device(*a, **k):
         raise AssertionError("the device path ran")
 
+    seen = []
+    real = camp.run_trial
+
+    def spy(vals, block, *a):
+        seen.append((*vals.shape, block))
+        return real(vals, block, *a)
+
     monkeypatch.setattr(camp.ops, "encode", no_device)
     monkeypatch.setattr(camp.ops, "decode", no_device)
+    monkeypatch.setattr(camp, "run_trial", spy)
     monkeypatch.setenv("SEED", "12")
     assert camp.main(["30"]) == 0
     assert "30 trials, 0 failures" in capsys.readouterr().out
+    assert any(t not in camp.DEVICE_SHAPES for t in seen)
 
 
 def test_one_byte_corruption_is_a_mismatch(monkeypatch, capsys):

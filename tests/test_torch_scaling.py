@@ -45,12 +45,24 @@ def test_one_device_result_is_null(capsys):
     assert got["frames_per_s"]["1"] > 0
 
 
-def test_measure_counts_every_shard():
+def test_measure_counts_every_shard(monkeypatch):
     """N devices encode N x frames_per_dev frames, split as ShardedCodec
-    splits them."""
+    splits them: each timed step is a whole ``encode_shards`` of them, its
+    size table over every frame."""
+    steps = []
+    real = scaling.ShardedCodec.encode_shards
+
+    def spy(self, frames, n_frames):
+        res = real(self, frames, n_frames)
+        steps.append((self.ndev, frames.shape, n_frames, len(res.nbytes)))
+        return res
+
+    monkeypatch.setattr(scaling.ShardedCodec, "encode_shards", spy)
     spec = scaling.FrameSpec.for_dtype(64 * 64, np.uint16)
-    fps = scaling.measure(spec, [torch.device("cpu")] * 3, 2, reps=1)
+    fps = scaling.measure(spec, [torch.device("cpu")] * 3, 2, reps=2)
     assert fps > 0
+    # a warm step, then the two timed ones
+    assert steps == [(3, (6, 64 * 64), 6, 6)] * 3
 
 
 def test_only_cpu_takes_a_device_argument():

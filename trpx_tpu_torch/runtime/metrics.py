@@ -8,8 +8,7 @@ against the card's HBM peak, compression ratio and scaling efficiency.
 by ``torch.cuda.get_device_name()``. ``profiler_trace`` is a
 ``torch.profiler`` window in place of ``jax.profiler``. ``event_ms`` and
 ``device_ms`` time a call on the card: CUDA events around a loop of
-calls, with and without the host's share; ``devices_ms`` times calls on
-several cards at once.
+calls, with and without the host's share.
 """
 
 from __future__ import annotations
@@ -175,50 +174,29 @@ def event_ms(fn, iters: int) -> float:
 
 
 def device_ms(fn, iters: int) -> float:
-    """Device milliseconds per call of `fn` on the current card
-    (:func:`devices_ms` of that card alone)."""
+    """Device milliseconds per call of `fn`: CUDA events around `iters`
+    calls (after a warm one) that the host queues behind a sleeping
+    kernel, so the card runs them back to back and the host's share,
+    which a loop of calls shorter than their host work would otherwise
+    time, stays hidden. The sleep grows until it outlasts the host's
+    queueing; `fn` must not wait for the card."""
     import torch
 
-    return devices_ms([(torch.cuda.current_device(), fn)], iters)[0]
-
-
-def devices_ms(calls, iters: int) -> list[float]:
-    """Device milliseconds per call of each ``(device, fn)`` of `calls`:
-    on each card, CUDA events around `iters` calls of its `fn` (after a
-    warm one) that the host queues behind a sleeping kernel, so the card
-    runs them back to back and the host's share, which a loop of calls
-    shorter than their host work would otherwise time, stays hidden; the
-    cards run at once. The sleep grows until it outlasts the host's
-    queueing; no `fn` may wait for a card."""
-    import torch
-
-    for dev, fn in calls:
-        with torch.cuda.device(dev):
-            fn()
-    for dev, _ in calls:
-        torch.cuda.synchronize(dev)
+    fn()
+    torch.cuda.synchronize()
+    marks = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
     cycles = 1 << 24
     for _ in range(5):
-        marks = []
-        for dev, _ in calls:
-            with torch.cuda.device(dev):
-                m = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
-                m[0].record()
-                torch.cuda._sleep(cycles)
-                m[1].record()
-            marks.append(m)
+        marks[0].record()
+        torch.cuda._sleep(cycles)
         t0 = time.perf_counter()
+        marks[1].record()
         for _ in range(iters):
-            for dev, fn in calls:
-                with torch.cuda.device(dev):
-                    fn()
-        for (dev, _), m in zip(calls, marks):
-            with torch.cuda.device(dev):
-                m[2].record()
+            fn()
+        marks[2].record()
         queued_ms = (time.perf_counter() - t0) * 1e3
-        for dev, _ in calls:
-            torch.cuda.synchronize(dev)
-        if queued_ms < 0.8 * min(m[0].elapsed_time(m[1]) for m in marks):
-            return [m[1].elapsed_time(m[2]) / iters for m in marks]
+        torch.cuda.synchronize()
+        if queued_ms < 0.8 * marks[0].elapsed_time(marks[1]):
+            return marks[1].elapsed_time(marks[2]) / iters
         cycles *= 4
-    raise RuntimeError("the calls kept the host longer than the cards slept")
+    raise RuntimeError("the calls kept the host longer than the card slept")

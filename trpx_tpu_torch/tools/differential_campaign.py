@@ -29,9 +29,9 @@ table) and ``ROUTE_TRIALS`` (the port's kernel routes: the tiled and the
 one-pass pack and unpack on either side of ``FrameSpec.tiled_pack`` and
 ``FrameSpec.tiled``) on the device, by default the card: the gate after
 any change to a kernel. Without ``--device`` or ``--smoke`` the soak
-checks the host codecs only, as the JAX tool does without ``--device``.
-With ``--fixed-shapes``, shapes come from ``DEVICE_SHAPES``, the JAX
-tool's device palette, so a seed of its device soak replays here.
+checks the host codecs only, on random shapes; with ``--device`` it
+draws its shapes from ``DEVICE_SHAPES``, as the JAX tool does, so a seed
+of either tool's device soak replays in the other.
 
 Prints progress every 250 trials; on the first mismatch prints
 ``MISMATCH:`` with the full repro (seed, dtype, shape, block) and returns
@@ -116,9 +116,9 @@ def _in_reference_envelope(vals: np.ndarray, block: int) -> bool:
     return True
 
 
-#: the JAX tool's device palette of (F, n, block): there, every new shape
-#: costs an XLA compile; the CUDA kernels take any shape, so the port's
-#: soak draws random shapes unless ``--fixed-shapes`` asks for these
+#: the device soak's palette of (F, n, block), the JAX tool's: there,
+#: every new shape costs an XLA compile; here it keeps the two tools'
+#: seeds interchangeable
 DEVICE_SHAPES = [(1, 144, 12), (3, 144, 12), (2, 1000, 12), (4, 1000, 16),
                  (2, 4096, 12), (1, 4095, 12),
                  # big enough that u32/i32 dtypes exceed the VMEM budget
@@ -284,9 +284,6 @@ def main(argv=None) -> int:
     ap.add_argument("--smoke", action="store_true",
                     help="the fixed rows of SMOKE_TRIALS and ROUTE_TRIALS "
                          "on the device")
-    ap.add_argument("--fixed-shapes", action="store_true",
-                    help="draw shapes from DEVICE_SHAPES, as the JAX tool's "
-                         "device soak does")
     a = ap.parse_args(argv)
     dev = (_api._torch_device(a.device)
            if a.smoke or a.device is not None else None)
@@ -302,7 +299,7 @@ def main(argv=None) -> int:
         else:
             seed = int(rng_master.integers(0, 2**31))
             vals, block = _rand_frames(np.random.default_rng(seed),
-                                       fixed_shapes=a.fixed_shapes)
+                                       fixed_shapes=dev is not None)
         ctx = (f"trial {t} seed {seed} dtype {vals.dtype} F,n={vals.shape} "
                f"block {block} device {dev}")
         try:

@@ -4,17 +4,18 @@ the counterpart of ``tools/tpu_scaling.py``.
     python -m trpx_tpu_torch.tools.scaling [frames_per_dev] [--reps R]
     python -m trpx_tpu_torch.tools.scaling --device cpu --devices K
 
-Runs the sharded encode (``parallel.ShardedCodec`` over the first 1, 2,
-4, ... cards) of ``frames_per_dev`` (default 32) resident 512x512 uint16
-frames per card, synthesized on each card, and reports the encode rate
-fps(N), from the device time of every card's shard pack with all cards
-running at once (``runtime.metrics.devices_ms``: the slowest card sets
-the time), and the scaling efficiency fps(N) / (N x fps(1)). With one card
-the efficiency is null, with the reason: it is never estimated.
+Encodes ``frames_per_dev`` (default 32) 512x512 uint16 frames per card,
+Poisson(3) from a seed, with ``ShardedCodec(spec, devices[:N]).
+encode_shards`` for N = 1, 2, 4, ... cards, and reports fps(N), from the
+median wall time of a whole step: host frames in, each shard's pad and
+upload, its pack on its card, the words back on the host and the size
+and offset tables. It also reports the scaling efficiency fps(N) / (N x
+fps(1)). With one card the efficiency is null, with the reason: it is
+never estimated.
 
 ``--device cpu --devices K`` runs K shards of the kernels' plain versions
-on the CPU, one after another, timed by the host clock: it exercises the
-code for tests, and its numbers mean nothing, as its output says.
+on the CPU: it exercises the code for tests, and its numbers mean
+nothing, as its output says.
 
 Prints a line per card count on stderr and, last, one JSON object.
 """
@@ -23,6 +24,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import statistics
 import sys
 import time
 
@@ -30,11 +32,8 @@ import numpy as np
 import torch
 
 from .. import api as _api
-from ..bench import HOT_U16, synth
-from ..ops.coding import FrameSpec, pack_kernel
+from ..ops.coding import FrameSpec
 from ..parallel import ShardedCodec, default_devices
-from ..parallel.codec import _split
-from ..runtime.metrics import devices_ms
 
 #: values per frame of the measured encode (512x512)
 N_VALUES = 512 * 512
@@ -42,26 +41,20 @@ N_VALUES = 512 * 512
 
 def measure(spec: FrameSpec, devices, frames_per_dev: int,
             reps: int = 5) -> float:
-    """Frames/s of the sharded encode of ``frames_per_dev`` resident
-    frames per device over ``ShardedCodec(spec, devices)``: each device
-    packs its shard (the routed pack kernel), all cards at once; on the
-    CPU the shards run one after another by the host clock."""
+    """Frames/s of ``ShardedCodec(spec, devices).encode_shards`` on
+    ``frames_per_dev`` host uint16 frames per device: the median wall time
+    of `reps` whole steps after a warm one."""
     codec = ShardedCodec(spec, devices)
     F = frames_per_dev * codec.ndev
-    shards = [synth(spec, hi - lo, HOT_U16, seed, dev)
-              for seed, ((lo, hi), dev) in enumerate(
-                  zip(_split(F, codec.ndev), codec.devices))]
-    calls = [(x.device, lambda x=x: pack_kernel(spec, len(x))(spec, x))
-             for x in shards]
-    if codec.devices[0].type == "cuda":
-        return F / max(devices_ms(calls, reps)) * 1e3
-    for _, fn in calls:
-        fn()
-    t0 = time.perf_counter()
+    frames = np.random.default_rng(0).poisson(
+        3.0, (F, spec.n)).astype(np.uint16)
+    codec.encode_shards(frames, F)
+    ts = []
     for _ in range(reps):
-        for _, fn in calls:
-            fn()
-    return F * reps / (time.perf_counter() - t0)
+        t0 = time.perf_counter()
+        codec.encode_shards(frames, F)
+        ts.append(time.perf_counter() - t0)
+    return F / statistics.median(ts)
 
 
 def run(devices, frames_per_dev: int = 32, reps: int = 5) -> dict:
@@ -83,6 +76,8 @@ def run(devices, frames_per_dev: int = 32, reps: int = 5) -> dict:
         "devices": len(devices),
         "frames_per_dev": frames_per_dev,
         "frame": "512x512 u16",
+        "timed": "ShardedCodec.encode_shards, host frames to host words, "
+                 "median wall time",
         "frames_per_s": {str(k): v for k, v in fps.items()},
         "scaling_efficiency": ({str(k): v / (k * fps[1])
                                 for k, v in fps.items() if k > 1}
@@ -91,9 +86,8 @@ def run(devices, frames_per_dev: int = 32, reps: int = 5) -> dict:
     if len(fps) == 1:
         out["reason"] = "one card" if cuda else "one device"
     if not cuda:
-        out["note"] = ("the kernels' plain versions on the CPU, one shard "
-                       "after another, by the host clock: these numbers "
-                       "mean nothing")
+        out["note"] = ("the kernels' plain versions on the CPU: these "
+                       "numbers mean nothing")
     return out
 
 
