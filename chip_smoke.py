@@ -103,7 +103,33 @@ the tiled unpack. Phases, one line each (more for phases 5 and 6):
    counters; (d) ``tools.scaling`` on the card(s): the one-card rate and,
    with one card, a null scaling efficiency. The launches of (b) and (c)
    join the kernels line; those of (a) and (d), which repeat calls to time
-   them, are checked against their routes and printed, but not counted.
+   them, are checked against their routes and printed, but not counted;
+11. the guarantees the JAX package keeps: (a) the hostile corpus of
+   ``tests/test_fuzz_decode.py`` (the same seeds: 120 payload byte flips,
+   46 truncations, 15 header tamperings, 64 corruption bursts, random
+   garbage) of a 3 x 1,000 u16 archive (the tiled unpack) and of a
+   256 x 4,096 one with hot pixels (the one-pass unpack) through the
+   public ``decompress`` at its default device, each outcome equal to
+   ``decompress(blob, device="cpu")`` (the same clean error class or
+   equal pixels; ``device=False`` where the default sends the stream to
+   the host codec), the counts by outcome printed, the launches on the
+   routes ``FrameSpec`` gives the decoded mutations; then a synchronize
+   and a clean 256 x 512x512 round trip show the context healthy; (b) the
+   race drill: ``RACE_THREADS`` host threads launch at once, alternating
+   both unpacks of u8/u16 and of i16/i32 batches, both packs of u8/u16
+   frames and all four kernels on u32 frames in blocks of 3, 64 and 512
+   values (kernel instances shared at different shared-memory sizes,
+   some above 48 KB), every result exact; (c) BASELINE config 4, the acquisition pipeline of
+   ``docs/DEPLOY.md``: 10,000 x 512x512 u16 (Poisson(3), 200 hot pixels a
+   frame at 65535) drawn on the card in 256-frame chunks
+   (``bench.synth``, a seed per chunk) into one 5.24 GB BigTIFF with
+   ``TiffWriter``; the CLI in process, ``encode --stream --index`` at the
+   default device and ``encode --stream --host`` (SHA-256 equal),
+   ``decode --stream`` (a BigTIFF by ``needs_bigtiff``, held chunk by
+   chunk through ``TiffStream`` against the frames drawn again) and
+   ``verify``, each step's host-clock frames/s printed. The launches of
+   (a) and (b), which are not traffic, are checked but not counted; those
+   of (c) join the kernels line.
 
 It then prints the card line, a JSON line of per-kernel results and, last,
 ``{"ok": true, "device": {...}}``. Any failure exits non-zero before that
@@ -156,6 +182,19 @@ WORKER_TIMEOUT_S = 120.0
 #: ``bench.py``'s 9 / 5 batches and 7 reps)
 BENCH_DISTINCT = 3
 BENCH_REPS = 3
+#: phase 11(a): (frames, values) of the hostile corpus's base archives of
+#: u16, the first decoded by the tiled unpack, the second by the one-pass
+HOSTILE_BASES = ((3, 1000), (256, 4096))
+#: the clean outcomes of a hostile archive besides a decode
+OK_ERRORS = (ValueError, TypeError, OverflowError, KeyError, IndexError)
+#: phase 11(b): host threads of the race drill and calls a thread
+RACE_THREADS = 4
+RACE_CALLS = 100
+#: phase 11(c): BASELINE config 4, a movie of 512x512 u16 frames through
+#: the acquisition pipeline of docs/DEPLOY.md, drawn and compared in
+#: chunks of MOVIE_CHUNK frames
+MOVIE_FRAMES = 10_000
+MOVIE_CHUNK = 256
 #: device memory rate of an H100 SXM (NVIDIA's data sheet), for the bounds
 HBM_BYTES_PER_S = 3.35e12
 DTYPES = (np.uint8, np.int8, np.uint16, np.int16, np.uint32, np.int32)
@@ -1217,6 +1256,384 @@ def _scaling_phase() -> None:
           f"{json.dumps(res)}", flush=True)
 
 
+def hostile_corpus(base: bytes, garbage: bool = False) -> list:
+    """(kind, blob) mutations of the archive `base` with the seeds of
+    tests/test_fuzz_decode.py: 120 payload byte flips (seed 0), 46
+    truncations (seed 1), 15 header attribute tamperings, and 64 bursts of
+    8-64 corrupt bytes (seeds 0-3, 16 each); with `garbage`, its random
+    blobs (seed 2) too. tests/test_torch_fuzz_decode.py holds the flips,
+    truncations and tamperings of its base archive to these."""
+    from trpx_tpu_torch.format.pycodec import TrpxArchive
+
+    hdr_end = base.index(b"/>") + 2
+    out = []
+    rng = np.random.default_rng(0)
+    for _ in range(120):
+        blob = bytearray(base)
+        i = int(rng.integers(hdr_end, len(blob)))
+        blob[i] ^= int(rng.integers(1, 256))
+        out.append(("flip", bytes(blob)))
+    rng = np.random.default_rng(1)
+    cuts = set(int(rng.integers(0, len(base))) for _ in range(40))
+    cuts |= {0, 1, hdr_end - 1, hdr_end, hdr_end + 1, len(base) - 1}
+    out += [("truncation", base[:cut]) for cut in sorted(cuts)]
+    meta = TrpxArchive.from_bytes(base).meta
+    hdr, payload = base[:hdr_end].decode("latin1"), base[hdr_end:]
+
+    def attr(name, old, new):
+        return hdr.replace(f'{name}="{old}"', f'{name}="{new}"')
+
+    n, F = meta.number_of_values, meta.number_of_frames
+    tampered = [
+        attr("number_of_values", n, 100 * n), attr("number_of_values", n, 0),
+        attr("number_of_values", n, -5),
+        attr("number_of_frames", F, 1_000_000),
+        attr("number_of_frames", F, 0),
+        attr("block", meta.block, 0), attr("block", meta.block, -1),
+        attr("block", meta.block, 1_000_000_000),
+        attr("prolix_bits", meta.prolix_bits, 200),
+        attr("prolix_bits", meta.prolix_bits, -3),
+        attr("signed", int(meta.signed), 1 - int(meta.signed)),
+        *(attr("memory_size", len(payload), v)
+          for v in (0, 1, len(payload) * 100, -1))]
+    out += [("tamper", h.encode("latin1") + payload) for h in tampered]
+    for seed in range(4):
+        rng = np.random.default_rng(seed)
+        for _ in range(16):
+            blob = bytearray(base)
+            start = int(rng.integers(hdr_end, len(blob) - 64))
+            ln = int(rng.integers(8, 64))
+            blob[start:start + ln] = rng.integers(
+                0, 256, size=ln, dtype=np.uint8).tobytes()
+            out.append(("burst", bytes(blob)))
+    if garbage:
+        rng = np.random.default_rng(2)
+        out += [("garbage", rng.integers(0, 256, size=size,
+                                         dtype=np.uint8).tobytes())
+                for size in (0, 1, 7, 100, 4096)]
+        out.append(("garbage", (
+            b'<Terse prolix_bits="16" signed="0" block="12" '
+            b'memory_size="512" number_of_values="1000" '
+            b'number_of_frames="2"/>'
+            + rng.integers(0, 256, size=512, dtype=np.uint8).tobytes())))
+    return out
+
+
+def _outcome(fn):
+    """The clean exception class a call raised, or its output."""
+    try:
+        return np.asarray(fn())
+    except OK_ERRORS as e:
+        return type(e)
+
+
+def hostile_phase(card: str) -> None:
+    """Phase 11(a): the hostile corpus of each base archive through the
+    public ``decompress`` at its default device; every outcome equals
+    ``decompress(blob, device="cpu")``'s (``device=False``'s where the
+    default routes the stream to the host codec); launches on the routes
+    ``FrameSpec`` gives the decoded mutations; then the context is
+    healthy. Its launches are not traffic: checked, not counted."""
+    import warnings
+
+    import trpx_tpu_torch
+    from trpx_tpu_torch import api
+    from trpx_tpu_torch.format.pycodec import TrpxArchive
+    from trpx_tpu_torch.native import codec as ncodec
+    from trpx_tpu_torch.ops import FrameSpec
+
+    msgs = []
+    for (F, n), seed in zip(HOSTILE_BASES, (7, SEED + 11)):
+        rng = np.random.default_rng(seed)
+        stack = rng.poisson(3.0, size=(F, n)).astype(np.uint16)
+        stack[:, rng.integers(0, n, 20)] = 65535     # hot pixels
+        base = ncodec.encode(stack).to_bytes()
+        corpus = hostile_corpus(base, garbage=F == HOSTILE_BASES[0][0])
+        counts: dict[str, int] = {}
+        routes: set = set()
+        on_card = 0
+        t0 = time.perf_counter()
+        _zero_counts()
+        for kind, blob in corpus:
+            try:
+                meta = TrpxArchive.from_bytes(blob).meta
+                dtype = api.output_dtype(meta)
+                kernel = api._decode_ok(meta, dtype)
+            except OK_ERRORS:
+                kernel, meta = True, None
+            with warnings.catch_warnings():
+                warnings.simplefilter("ignore", RuntimeWarning)
+                got = _outcome(lambda: trpx_tpu_torch.decompress(blob))
+                want = _outcome(lambda: trpx_tpu_torch.decompress(
+                    blob, device="cpu" if kernel else False))
+            if isinstance(got, type) or isinstance(want, type):
+                same = got is want
+            else:
+                same = (got.dtype == want.dtype and got.shape == want.shape
+                        and np.array_equal(got, want))
+            if not same:
+                raise AssertionError(
+                    f"phase 11(a) {F}x{n} {kind}: the card gave "
+                    f"{got if isinstance(got, type) else 'pixels'}, the "
+                    f"plain versions "
+                    f"{want if isinstance(want, type) else 'other pixels'}")
+            key = got.__name__ if isinstance(got, type) else "decoded"
+            counts[key] = counts.get(key, 0) + 1
+            if kernel and not isinstance(got, type):
+                on_card += 1
+                spec = FrameSpec.for_dtype(meta.number_of_values, dtype,
+                                           meta.block)
+                routes.add(_route(spec, meta.number_of_frames)[1])
+        got = _read_counts()
+        _expect_route(f"phase 11(a) {F}x{n}", got, routes)
+        msgs.append(f"{F}x{n} u16 base ({'+'.join(sorted(routes))}): "
+                    f"{len(corpus)} mutations "
+                    + ", ".join(f"{k} {v}" for k, v in sorted(counts.items()))
+                    + f" ({on_card} decoded on the card), launches {got}, "
+                    f"{time.perf_counter() - t0:.1f} s")
+    torch.cuda.synchronize()
+    rng = np.random.default_rng(SEED + 12)
+    r = _drive(_frames(rng, F_MAIN, SIDE * SIDE).reshape(F_MAIN, SIDE, SIDE))
+    print(f"phase 11(a) hostile corpus through decompress on {card}, each "
+          f"outcome == the plain versions' (the same clean error class or "
+          f"equal pixels): " + "; ".join(msgs) + f"; then synchronize and a "
+          f"clean {F_MAIN}x{SIDE}x{SIDE} round trip, launches "
+          f"{r['launches']}: context healthy", flush=True)
+
+
+def race_drill(dev, card: str, calls: int = RACE_CALLS) -> None:
+    """Phase 11(b): RACE_THREADS host threads launch at once (the ctypes
+    launchers release the GIL), each taking in turn both unpacks of u8,
+    u16, i16 and i32 batches (u8 and u16 share each unpack's unsigned
+    16-bit instance, i16 and i32 its signed one, at different
+    shared-memory sizes), both packs of u8 and u16 frames, and all four
+    kernels on u32 frames in blocks of 3, 64 and 512 values (each kernel's
+    generic-block instance, at sizes on both sides of the 48 KB a CTA gets
+    without opting in), `calls` calls a thread; every result exact.
+    Launches checked, not counted. Once one thread could lower a shared
+    instance's shared-memory limit between another's lookup and launch
+    (csrc/tile.cuh ``Residency``)."""
+    import functools
+    import threading
+
+    from trpx_tpu_torch.native import codec as ncodec
+    from trpx_tpu_torch.ops import (
+        FrameSpec,
+        decode_batch,
+        decode_batch_tiled,
+        decoded_dtype,
+        encode_batch,
+        encode_batch_plain,
+        encode_batch_tiled,
+        walk_archive,
+    )
+    from trpx_tpu_torch.ops.coding import _pad_batch
+    from trpx_tpu_torch.ops.cuda_pack import stream_words
+
+    rng = np.random.default_rng(SEED + 13)
+    n = 20_000
+    jobs = []
+    packs = []
+    for dt, block in ((np.uint8, 12), (np.uint16, 12), (np.int16, 12),
+                      (np.int32, 12), (np.uint32, 3), (np.uint32, 64),
+                      (np.uint32, 512)):
+        fr = _signed_frames(rng, 4, n, dt) if np.iinfo(dt).min < 0 \
+            else _frames(rng, 4, n, dt, hot=20)
+        spec = FrameSpec.for_dtype(n, dt, block)
+        name = f"{np.dtype(dt).name} block {block}"
+        widths, words = walk_archive(ncodec.encode(fr, block=block), spec)
+        wd = torch.from_numpy(widths.astype(np.uint8)).to(dev)
+        wo = torch.from_numpy(words.view(np.int32)).to(dev)
+        # the unpacks' output: uint16 for u8/u16, else the int32 bits
+        want = torch.from_numpy(fr.astype(np.int64).astype(
+            np.uint16 if decoded_dtype(spec) == torch.uint16 else np.int32))
+        want = want.to(dev)
+        for fn in (decode_batch, decode_batch_tiled):
+            jobs.append((f"{fn.__name__} {name}",
+                         functools.partial(fn, spec, wo, wd,
+                                           decoded_dtype(spec)), want))
+        if dt in (np.uint8, np.uint16, np.uint32):
+            x = torch.from_numpy(_pad_batch(fr, spec)).to(dev)
+            want = encode_batch_plain(spec, x)
+            for fn in (encode_batch, encode_batch_tiled):
+                packs.append((f"{fn.__name__} {name}",
+                              functools.partial(fn, spec, x), want))
+
+    def right(got, want) -> bool:
+        if isinstance(got, tuple):
+            return (torch.equal(got[1], want[1]) and torch.equal(got[2],
+                                                                 want[2])
+                    and torch.equal(stream_words(got[0], got[1]), want[0]))
+        if got.dtype == torch.uint16:
+            got, want = got.view(torch.int16), want.view(torch.int16)
+        return torch.equal(got, want)
+
+    jobs += packs
+    failures = []
+    done = [0] * RACE_THREADS
+
+    def run(k):
+        try:
+            for i in range(calls):
+                name, call, want = jobs[(i + 3 * k) % len(jobs)]
+                if not right(call(), want):
+                    failures.append(f"thread {k} call {i}: {name} differs")
+                done[k] += 1
+        except Exception as e:   # reported below with the thread
+            failures.append(f"thread {k}: {type(e).__name__}: {e}")
+
+    _zero_counts()
+    threads = [threading.Thread(target=run, args=(k,))
+               for k in range(RACE_THREADS)]
+    old = sys.getswitchinterval()
+    sys.setswitchinterval(1e-5)
+    t0 = time.perf_counter()
+    try:
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=300)
+    finally:
+        sys.setswitchinterval(old)
+    wall = time.perf_counter() - t0
+    if any(t.is_alive() for t in threads):
+        raise AssertionError("phase 11(b): a drill thread did not finish")
+    torch.cuda.synchronize()
+    if failures or done != [calls] * RACE_THREADS:
+        raise AssertionError(f"phase 11(b): calls done {done}, "
+                             f"{len(failures)} failures: "
+                             + "; ".join(failures[:5]))
+    got = _read_counts()
+    _expect_route("phase 11(b) race drill", got, set(_counters()))
+    print(f"phase 11(b) race drill on {card}: {RACE_THREADS} threads x "
+          f"{calls} calls over {len(jobs)} kernel calls (both unpacks "
+          f"of u8/u16/i16/i32, both packs of u8/u16, all four kernels on "
+          f"u32 in blocks of 3/64/512), every result exact, "
+          f"{wall:.1f} s, launches {got}", flush=True)
+
+
+def _sha256(path: Path) -> str:
+    import hashlib
+
+    h = hashlib.sha256()
+    with open(path, "rb") as f:
+        while chunk := f.read(1 << 24):
+            h.update(chunk)
+    return h.hexdigest()
+
+
+def _movie_phase(dev, card: str, workdir: Path) -> dict:
+    """Phase 11(c), BASELINE config 4: MOVIE_FRAMES frames of 512x512 u16
+    (Poisson(3), 200 hot pixels a frame at 65535) drawn on the card in
+    MOVIE_CHUNK-frame chunks (``bench.synth``, a seed per chunk, so any
+    chunk can be drawn again) into one BigTIFF with ``TiffWriter``, then
+    the port's CLI in process at its default device: ``encode --stream
+    --index`` on the card and ``encode --stream --host`` into another
+    directory (equal SHA-256), ``decode --stream`` of the card's archive
+    (a BigTIFF, chosen by ``needs_bigtiff``) held chunk by chunk through
+    ``TiffStream`` against the frames drawn again, and ``verify``. Each
+    step's launches are checked against its routes; returns them."""
+    import contextlib
+    import io
+
+    from trpx_tpu_torch import bench
+    from trpx_tpu_torch.cli.main import main as cli
+    from trpx_tpu_torch.io.tiff import TiffStream, TiffWriter, needs_bigtiff
+    from trpx_tpu_torch.ops import FrameSpec
+
+    n = SIDE * SIDE
+    spec = FrameSpec.for_dtype(n, np.uint16)
+    F, C = MOVIE_FRAMES, MOVIE_CHUNK
+    total = dict.fromkeys(_counters(), 0)
+    free = shutil.disk_usage(workdir).free
+    print(f"phase 11(c) movie: {F}x{SIDE}x{SIDE} u16 "
+          f"({F * n * 2 / 1e9:.2f} GB), {free / 1e9:.1f} GB free on the "
+          f"disk of {workdir}", flush=True)
+
+    def chunk(lo):
+        return bench.synth(spec, min(C, F - lo), 65535, SEED + lo,
+                           dev)[:, :n]
+
+    tif = workdir / "movie.tif"
+    t0 = time.perf_counter()
+    with TiffWriter(tif, bigtiff=needs_bigtiff(F * n * 2, F)) as wtr:
+        for lo in range(0, F, C):
+            wtr.append(chunk(lo).cpu().numpy().reshape(-1, SIDE, SIDE))
+    walls = {"TIFF write": time.perf_counter() - t0}
+
+    def run(step, argv, routes):
+        """One CLI call, the counters set to 0 just before and read just
+        after; raises on a nonzero exit, an error line or a kernel off the
+        step's routes."""
+        _zero_counts()
+        out, err = io.StringIO(), io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+            rc = cli(argv)
+        walls[step] = time.perf_counter() - t0
+        got = _read_counts()
+        if rc != 0 or err.getvalue():
+            raise AssertionError(f"phase 11(c) {step}: rc {rc}\n"
+                                 f"{out.getvalue()}\n{err.getvalue()}")
+        _expect_route(f"phase 11(c) {step}", got, routes)
+        for k, v in got.items():
+            total[k] += v
+        return got, out.getvalue()
+
+    tail = F % C or C
+    packs = {_route(spec, C)[0], _route(spec, tail)[0]}
+    unpacks = {_route(spec, C)[1], _route(spec, tail)[1]}
+    card_dir, host_dir, dec_dir = (workdir / d for d in ("card", "host",
+                                                         "dec"))
+    enc, _ = run("card encode", ["encode", "--stream", "--index", str(tif),
+                                 "--out-dir", str(card_dir)], packs)
+    run("host encode", ["encode", "--stream", "--host", str(tif),
+                        "--out-dir", str(host_dir)], set())
+    arch = card_dir / "movie.trpx"
+    digest = _sha256(arch)
+    if digest != _sha256(host_dir / "movie.trpx"):
+        raise AssertionError("phase 11(c): the card's archive differs from "
+                             "the host codec's")
+    if not Path(f"{arch}.idx").exists():
+        raise AssertionError("phase 11(c): encode --index wrote no sidecar")
+    size = arch.stat().st_size
+    tif.unlink()
+    shutil.rmtree(host_dir)
+    dec, _ = run("decode", ["decode", "--stream", str(arch), "--out-dir",
+                            str(dec_dir)], unpacks)
+    out = dec_dir / "movie.tif"
+    out_size = out.stat().st_size
+    with open(out, "rb") as f:
+        big = f.read(4) == b"II\x2b\x00"
+    if big != needs_bigtiff(F * n * 2, F) or big != (out_size > 1 << 32):
+        raise AssertionError(f"phase 11(c): the decoded stack of "
+                             f"{out_size} bytes is {'' if big else 'not '}"
+                             f"a BigTIFF")
+    t0 = time.perf_counter()
+    ts = TiffStream(out)
+    if len(ts) != F or ts.dims != (SIDE, SIDE):
+        raise AssertionError(f"phase 11(c): {len(ts)} images of {ts.dims}")
+    for lo in range(0, F, C):
+        want = chunk(lo).cpu().numpy().reshape(-1, SIDE, SIDE)
+        if not np.array_equal(ts.read(lo, lo + len(want)), want):
+            raise AssertionError(f"phase 11(c): frames {lo}+ differ")
+    ts.close()
+    walls["compare"] = time.perf_counter() - t0
+    _, text = run("verify", ["verify", str(arch)], set())
+    if ": OK" not in text:
+        raise AssertionError(f"phase 11(c) verify: {text}")
+    shutil.rmtree(card_dir)
+    shutil.rmtree(dec_dir)
+    print(f"phase 11(c) movie ({card}): archive {size / 1e9:.3f} GB, "
+          f"sha256 {digest[:16]} == --host's, encode launches {enc}, "
+          f"decode {dec}; decoded {'BigTIFF' if big else 'TIFF'} of "
+          f"{out_size} bytes == the frames drawn again; verify OK; host "
+          f"clock frames/s: " + ", ".join(
+              f"{k} {F / v:.1f} ({v:.1f} s)" for k, v in walls.items()),
+          flush=True)
+    return total
+
+
 def main() -> int:
     t_start = time.perf_counter()
     # phase 1: the card
@@ -1582,6 +1999,16 @@ def main() -> int:
             launches[k] += v
     _scaling_phase()
     print(f"phase 10 {time.perf_counter() - t10:.1f} s", flush=True)
+
+    # phase 11: the hostile corpus and the race drill (checked, not
+    # counted: neither is traffic), then BASELINE config 4's movie
+    t11 = time.perf_counter()
+    hostile_phase(card)
+    race_drill(dev, card)
+    with tempfile.TemporaryDirectory(dir=work) as d:
+        for k, v in _movie_phase(dev, card, Path(d)).items():
+            launches[k] += v
+    print(f"phase 11 {time.perf_counter() - t11:.1f} s", flush=True)
 
     sources = {"pack": ("pack.cu", "trpx_tpu/ops/pallas_pack.py:712"),
                "unpack": ("unpack.cu", "trpx_tpu/ops/pallas_unpack.py:626"),

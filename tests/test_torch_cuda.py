@@ -11,6 +11,9 @@ only the words of each frame's stream (``cuda_pack.defined_words``), so
 their words are compared through ``stream_words``.
 """
 
+import importlib.util
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
@@ -562,3 +565,126 @@ def test_scaling_on_card(cuda):
     if len(devices) == 1:
         assert res["scaling_efficiency"] is None
         assert res["reason"] == "one card"
+
+
+# ------------------------------------------------------ hostile tables ---
+
+#: mutations of a batch's tables: those of the JAX tiled-route test
+#: (tests/test_fuzz_decode.py:test_tiled_route_hostile_tables), widths of
+#: 33-255 (past an i32 target's fields), and a run of 255-bit blocks longer
+#: than any tile, whose CTAs' staged words cannot hold it
+HOSTILE_KINDS = ("over-claim", "negative", "zero tail", "word flips",
+                 "over 33", "dense")
+
+
+def hostile_tables(widths: np.ndarray, words: np.ndarray, kind: str, rng):
+    """A mutated copy of a batch's (F, nb) uint8 ``widths`` and (F, W)
+    uint32 ``words``: ``kind`` of :data:`HOSTILE_KINDS`, drawn from
+    ``rng``. Negative widths wrap into uint8 (156-255)."""
+    wd, wo = widths.copy(), words.copy()
+    F, nb = wd.shape
+    if kind == "over-claim":
+        wd[rng.integers(0, F), rng.integers(0, nb, 5)] = rng.integers(17, 256,
+                                                                      5)
+    elif kind == "negative":
+        wd[rng.integers(0, F), rng.integers(0, nb, 3)] = \
+            -int(rng.integers(1, 100)) % 256
+    elif kind == "zero tail":
+        wd[:, int(rng.integers(0, nb)):] = 0
+    elif kind == "word flips":
+        v = wo.view(np.uint8)
+        for _ in range(8):
+            v[rng.integers(0, v.shape[0]), rng.integers(0, v.shape[1])] ^= \
+                int(rng.integers(1, 256))
+    elif kind == "over 33":
+        wd[rng.integers(0, F), rng.integers(0, nb, 5)] = rng.integers(33, 256,
+                                                                      5)
+    else:
+        b = int(rng.integers(0, max(1, nb - 2048)))
+        wd[rng.integers(0, F), b : b + 2048] = 255
+    return wd, wo
+
+
+def _outcome(fn):
+    """("ok", output) of a call, or ("error", the exception's class)."""
+    try:
+        return "ok", fn()
+    except (ValueError, TypeError, OverflowError, KeyError,
+            IndexError) as e:
+        return "error", type(e)
+
+
+@pytest.mark.parametrize("dtype", [np.uint16, np.uint8, np.int32])
+def test_unpack_kernels_on_hostile_tables(cuda, dtype):
+    """Hostile tables fed straight to both unpack kernels (the one-pass
+    and the tiled at their default tiles, the tiled also at 64-block
+    tiles), widths up to 255 where the target's fields hold at most 8, 16
+    or 33 bits: each output equals its plain version on the card exactly
+    (the plain versions clamp word reads as the kernels do), or both
+    raise the same clean error. Then an untouched batch decodes exactly,
+    so no fault poisoned the context. Frames of 40,000 values keep every
+    bit offset of 255-bit fields under 2**31."""
+    n = 40_000
+    fr = _frames(dtype, n, seed=23)
+    spec = FrameSpec.for_dtype(n, dtype)
+    widths, words = walk_archive(ncodec.encode(fr), spec)
+    widths = widths.astype(np.uint8)
+    calls = [(decode_batch, decode_batch_plain, ()),
+             (decode_batch_tiled, decode_batch_tiled_plain, ()),
+             (decode_batch_tiled, decode_batch_tiled_plain, (64,))]
+    rng = np.random.default_rng(5)
+    for trial in range(4 * len(HOSTILE_KINDS)):
+        kind = HOSTILE_KINDS[trial % len(HOSTILE_KINDS)]
+        wd, wo = hostile_tables(widths, words, kind, rng)
+        wd = torch.from_numpy(wd).to(cuda)
+        wo = torch.from_numpy(wo.view(np.int32)).to(cuda)
+        for odt in {decoded_dtype(spec), torch.int32}:
+            for fn, plain, tile in calls:
+                got = _outcome(lambda: fn(spec, wo, wd, odt, *tile))
+                want = _outcome(lambda: plain(spec, wo, wd, odt, *tile))
+                assert got[0] == want[0], (kind, fn.__name__, got, want)
+                if got[0] == "error":
+                    assert got[1] is want[1], (kind, fn.__name__)
+                    continue
+                g, w = got[1], want[1]
+                if odt == torch.uint16:
+                    g, w = g.view(torch.int16), w.view(torch.int16)
+                assert torch.equal(g, w), (kind, fn.__name__, tile, odt)
+    torch.cuda.synchronize()
+    wd = torch.from_numpy(widths).to(cuda)
+    wo = torch.from_numpy(words.view(np.int32)).to(cuda)
+    for fn in (decode_batch, decode_batch_tiled):
+        np.testing.assert_array_equal(
+            fn(spec, wo, wd, decoded_dtype(spec)).cpu().numpy().astype(dtype),
+            fr)
+
+
+# ------------------------------------------- launches from many threads ---
+
+
+def _smoke():
+    """``chip_smoke.py``, whose phases 11(a) and 11(b) these tests run."""
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", Path(__file__).resolve().parent.parent
+        / "chip_smoke.py")
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    return smoke
+
+
+def test_launchers_from_many_threads(cuda):
+    """``chip_smoke.py`` phase 11(b) at 200 calls a thread: four host
+    threads launch at once (the ctypes launchers release the GIL), each
+    taking in turn both unpacks of u8, u16, i16 and i32 batches (kernel
+    instances shared by several targets at different shared-memory
+    sizes) and both packs of u8 and u16 frames; every result exact, every
+    call made."""
+    _smoke().race_drill(cuda, torch.cuda.get_device_name(cuda), calls=200)
+
+
+def test_hostile_corpus_on_card(cuda):
+    """``chip_smoke.py`` phase 11(a): the fuzz suite's mutations of a
+    3 x 1,000 u16 archive (the tiled unpack) and of a 256 x 4,096 one (the
+    one-pass unpack) through the public ``decompress`` on the card, each
+    outcome that of the plain versions, then a clean round trip."""
+    _smoke().hostile_phase(torch.cuda.get_device_name(cuda))

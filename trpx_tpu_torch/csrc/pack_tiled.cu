@@ -351,7 +351,8 @@ cudaError_t launch(const void* frames, int F, int n, int stride, int block,
                    int n_words, const PackTiledScratch& sc, void* words,
                    void* bits, void* maxw, int device, cudaStream_t stream) {
   const T* x = static_cast<const T*>(frames);
-  // the attributes once per (device, shared-memory size) of each kernel
+  // each kernel's attributes once per device, its residency once per
+  // (device, shared-memory size)
   static Residency plan_cache, place_cache;
   int resident = 0;
   const int plan_smem = 4 * tb;

@@ -12,6 +12,10 @@
 #pragma once
 
 #include <cstdint>
+#include <map>
+#include <mutex>
+#include <set>
+#include <utility>
 
 #include "common.cuh"
 
@@ -279,34 +283,54 @@ __device__ __forceinline__ void extract_tile(
 }
 
 // How many CTAs of a kernel fit on the card at once at a dynamic shared
-// memory size (after raising its limit and preferring shared memory over
-// L1), remembered for the last (device, size) asked: both attributes are
-// per device. Concurrent callers race only to store the same numbers.
+// memory size, remembered per (device, size). The first lookup on a device
+// raises the kernel's dynamic shared-memory limit to the most a CTA of it
+// can opt into on that card and prefers shared memory over L1 (both
+// attributes are per device); the limit is never lowered, so no launch
+// sees it set for another caller's smaller size. Launchers run on any
+// host thread (ctypes releases the GIL): one mutex guards each instance.
 struct Residency {
-  int device = -1, smem = -1, ctas = 0;
+  std::mutex mu;
+  std::set<int> raised;                     // devices whose limit is raised
+  std::map<std::pair<int, int>, int> ctas;  // (device, size) -> CTAs
   template <typename Kernel>
   cudaError_t get(Kernel kernel, int threads, int smem_bytes, int dev,
                   int& out) {
-    if (dev != device || smem_bytes != smem) {
-      cudaError_t err = cudaFuncSetAttribute(
-          kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
+    std::lock_guard<std::mutex> lock(mu);
+    const std::pair<int, int> key(dev, smem_bytes);
+    const auto hit = ctas.find(key);
+    if (hit != ctas.end()) {
+      out = hit->second;
+      return cudaSuccess;
+    }
+    cudaError_t err;
+    if (!raised.count(dev)) {
+      int optin = 0;
+      err = cudaDeviceGetAttribute(&optin,
+                                   cudaDevAttrMaxSharedMemoryPerBlockOptin,
+                                   dev);
+      if (err != cudaSuccess) return err;
+      cudaFuncAttributes attr;
+      err = cudaFuncGetAttributes(&attr, kernel);
+      if (err != cudaSuccess) return err;
+      err = cudaFuncSetAttribute(
+          kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+          optin - int(attr.sharedSizeBytes));
       if (err != cudaSuccess) return err;
       err = cudaFuncSetAttribute(
           kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
           int(cudaSharedmemCarveoutMaxShared));
       if (err != cudaSuccess) return err;
-      int per_sm = 0, sms = 0;
-      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
-                                                          threads, smem_bytes);
-      if (err != cudaSuccess) return err;
-      err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-      if (err != cudaSuccess) return err;
-      if (per_sm < 1) return cudaErrorInvalidConfiguration;
-      ctas = per_sm * sms;
-      smem = smem_bytes;
-      device = dev;
+      raised.insert(dev);
     }
-    out = ctas;
+    int per_sm = 0, sms = 0;
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                        threads, smem_bytes);
+    if (err != cudaSuccess) return err;
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (err != cudaSuccess) return err;
+    if (per_sm < 1) return cudaErrorInvalidConfiguration;
+    out = ctas[key] = per_sm * sms;
     return cudaSuccess;
   }
 };

@@ -169,8 +169,8 @@ cudaError_t launch(const void* words, const void* widths, int F, int W,
                    const TileSmem& sm, int* part, int* start, void* out,
                    int device, cudaStream_t stream) {
   auto kernel = unpack_tiles<OutT, kSigned, kB>;
-  // the attributes once per (device, shared-memory size): the launch is on
-  // every decode's hot path
+  // the attributes once per device, the residency once per (device,
+  // shared-memory size): the launch is on every decode's hot path
   static Residency cache;
   int resident = 0;
   cudaError_t err = cache.get(kernel, kNT, sm.total, device, resident);

@@ -130,15 +130,22 @@ def pack_scratch_ints(frames: int, tiles: int) -> int:
     return 2 + 4 * frames * tiles + frames
 
 
+def words_cap(max_width: int, block: int, tile_blocks: int) -> int:
+    """Stream words a CTA that holds a tile's words has room for
+    (``csrc/tile.cuh:TileSmem::words_cap``): a tile of the widest fields,
+    +6 for the bit and 16-byte phases and the two-word window, rounded to
+    4."""
+    return _round_up(-(-tile_blocks * (12 + block * max_width) // 32) + 6, 4)
+
+
 def tile_smem_bytes(max_width: int, block: int, tile_blocks: int) -> int:
     """Dynamic shared memory of a CTA that holds a tile's stream words
     (``csrc/tile.cuh:TileSmem``: ``unpack.cu``, and the placement and
-    extraction CTAs of the tiled kernels): the words of a tile of the
-    widest fields (+6 for the bit and 16-byte phases and the two-word
-    window, rounded to 4), an int offset per block and a byte width per
-    block and the one before (rounded to 16)."""
-    cap = _round_up(-(-tile_blocks * (12 + block * max_width) // 32) + 6, 4)
-    return 4 * cap + 4 * tile_blocks + _round_up(tile_blocks + 1, 16)
+    extraction CTAs of the tiled kernels): :func:`words_cap` words, an int
+    offset per block and a byte width per block and the one before
+    (rounded to 16)."""
+    return (4 * words_cap(max_width, block, tile_blocks) + 4 * tile_blocks
+            + _round_up(tile_blocks + 1, 16))
 
 
 def value_tile_smem(kernel: str, spec, tile_blocks: int) -> int:

@@ -21,7 +21,10 @@ The plain versions derive each block's bits from the widths as
 exclusive prefix (tile by tile, from each tile's offset, in the tiled
 version), and read every value with the two-word gather of
 ``trpx_tpu/ops/coding.py:decode_frame_device``, in int64 (PyTorch has no
-uint32 shifts).
+uint32 shifts). They are the kernels' specification on hostile tables
+too: each read is clamped to the words the kernel's CTA stages for the
+value's tile (:func:`_staged`), which only widths wider than the target's
+fields can reach past.
 """
 
 from __future__ import annotations
@@ -32,6 +35,7 @@ import torch
 
 from .. import _build
 from .cuda_pack import (
+    TILE_VALUES,
     block_counts,
     check_tile_blocks,
     choose_tile,
@@ -40,6 +44,7 @@ from .cuda_pack import (
     tiled_plan,
     value_tile_geometry,
     value_tile_smem,
+    words_cap,
 )
 
 
@@ -81,18 +86,61 @@ def tiled_unpack_scratch_ints(frames: int, tiles: int) -> int:
     return frames * tiles + frames * (tiles + 1)
 
 
+def _staged(spec, W: int, w: torch.Tensor, starts: torch.Tensor,
+            hb: torch.Tensor, tile_blocks: int):
+    """(first, last) word a kernel's CTA may read each value's two-word
+    window from, broadcastable to (F, nb, B): the CTA of the value's tile
+    of ``tile_blocks`` blocks stages the words of the tile's bits [P, E)
+    (of a one-block tile of more than ``TILE_VALUES`` values, those of
+    the value's chunk of fields), within the row and within its
+    ``words_cap`` words (``csrc/unpack.cu``, ``csrc/unpack_tiled.cu``,
+    ``tile.cuh:field_at``). Only widths wider than the target's fields
+    reach past the tile's words."""
+    nb, B = spec.nb, spec.block
+    counts = block_counts(spec, w.device)
+    total = starts[:, -1] + hb[:, -1] + w[:, -1] * counts[-1]
+    first = torch.arange(nb, device=w.device) // tile_blocks * tile_blocks
+    nxt = first + tile_blocks
+    P = starts[:, first][..., None]
+    E = torch.where(nxt < nb, starts[:, nxt.clamp(max=nb - 1)],
+                    total[:, None])[..., None]
+    if tile_blocks == 1 and B > TILE_VALUES:
+        # a block's fields in chunks of TILE_VALUES, each staged alone
+        c0 = torch.arange(B, device=w.device) // TILE_VALUES * TILE_VALUES
+        c1 = torch.minimum(c0 + TILE_VALUES, counts[:, None])
+        pay = (starts + hb)[..., None]
+        wv = w[..., None]
+        chunked = (counts[:, None] > TILE_VALUES) & (wv > 0)
+        P = torch.where(chunked, pay + c0 * wv, P)
+        E = torch.where(chunked, pay + c1 * wv, E)
+        cap = words_cap(spec.max_width, TILE_VALUES, 1)
+    else:
+        cap = words_cap(spec.max_width, B, tile_blocks)
+    base = (P >> 5).clamp(max=W - 2).clamp(min=0)
+    end = torch.maximum(torch.minimum(((E >> 5) + 2).clamp(max=W),
+                                      base + cap - 3), base + 2)
+    return base, end - 2
+
+
 def _extract(spec, words: torch.Tensor, w: torch.Tensor,
              starts: torch.Tensor, hb: torch.Tensor,
-             out_dtype: torch.dtype) -> torch.Tensor:
+             out_dtype: torch.dtype, tile_blocks: int | None) -> torch.Tensor:
     """Every value's field from the (F, nb) int64 widths ``w``, block
-    offsets ``starts`` and header bits ``hb``: the flat (F, n) output."""
+    offsets ``starts`` and header bits ``hb``: the flat (F, n) output.
+    Word reads are clamped as the kernel's at tiles of ``tile_blocks``
+    blocks clamps them (:func:`_staged`; None: to the row), so
+    inconsistent tables cannot index past a row."""
     F, W = words.shape
     B = spec.block
+    if tile_blocks is None:
+        lo, hi = 0, W - 2
+    else:
+        lo, hi = _staged(spec, W, w, starts, hb, tile_blocks)
     w = w[..., None]
     j = torch.arange(B, dtype=torch.int64, device=w.device)
-    off = ((starts + hb)[..., None] + j * w).reshape(F, -1)
-    # clamped like the kernel: inconsistent tables cannot index past a row
-    idx = (off >> 5).clamp(0, W - 2)
+    off = (starts + hb)[..., None] + j * w
+    idx = torch.clamp(off >> 5, lo, hi).reshape(F, -1)
+    off = off.reshape(F, -1)
     s = off & 31
     wd = words.to(torch.int64) & 0xFFFFFFFF
     lo = torch.gather(wd, 1, idx)
@@ -114,12 +162,17 @@ def _extract(spec, words: torch.Tensor, w: torch.Tensor,
 def decode_batch_plain(spec, words: torch.Tensor, widths: torch.Tensor,
                        out_dtype: torch.dtype) -> torch.Tensor:
     """Plain PyTorch decode on the inputs' device; the reference the
-    unpack kernel is held against."""
+    unpack kernel is held against, reads clamped as at its tiles
+    (:func:`unpack_geometry`; to the row for blocks it cannot tile)."""
     w = widths.to(torch.int64)
     hb, _ = header_codes(w)
     block_bits = hb + w * block_counts(spec, w.device)
     starts = torch.cumsum(block_bits, dim=1) - block_bits
-    return _extract(spec, words, w, starts, hb, out_dtype)
+    try:
+        tile_blocks = unpack_geometry(spec)[0]
+    except ValueError:
+        tile_blocks = None
+    return _extract(spec, words, w, starts, hb, out_dtype, tile_blocks)
 
 
 def decode_batch_tiled_plain(spec, words: torch.Tensor,
@@ -133,7 +186,8 @@ def decode_batch_tiled_plain(spec, words: torch.Tensor,
         tile_blocks = tiled_unpack_geometry(spec)[0]
     w = widths.to(torch.int64)
     p = tiled_plan(spec, w, tile_blocks)
-    return _extract(spec, words, w, p["starts"], p["hb"], out_dtype)
+    return _extract(spec, words, w, p["starts"], p["hb"], out_dtype,
+                    tile_blocks)
 
 
 def _check(spec, words, widths, out_dtype) -> None:
