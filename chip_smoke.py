@@ -13,7 +13,9 @@ of 2048x2048 int32 in blocks of 1,024 values through the tiled pack and
 the tiled unpack. Phases, one line each (more for phases 5 and 6):
 
 1. the card (``nvidia-smi`` name and power limit), torch and CUDA versions;
-2. the kernels' build from ``trpx_tpu_torch/csrc`` (seconds);
+2. the kernels' build from ``trpx_tpu_torch/csrc`` (one ``nvcc`` per
+   source, all started together, then a link; seconds), and beside it the
+   bounds-checked build of phase 11(d);
 3. each kernel against its plain PyTorch version on the card, exactly
    (lossless integer codec: tolerance 0; the one-pass pack on the words
    each frame defines, ``cuda_pack.defined_words``): the one-pass kernels
@@ -27,7 +29,9 @@ the tiled unpack. Phases, one line each (more for phases 5 and 6):
    of 2048x2048 u32, on blocks larger than a tile (one-block tiles walked
    in chunks; the widest field at a chunk's edge, a zero block, a partial
    block) and on tiles of fewer than 32 bits (all-zero blocks of 1,024
-   values, many tiles to a word);
+   values, many tiles to a word); after every launch the thread's current
+   device is the one it was (on one card this cannot fail: it guards
+   against a device guard that throws, and is no evidence of the repair);
 4. the 512x512 path: archive bytes equal the native host codec's, pixels
    round-trip exactly, a natively encoded ("foreign") archive decodes to
    the same pixels; the one-pass kernels' launch counters moved and the
@@ -108,14 +112,25 @@ the tiled unpack. Phases, one line each (more for phases 5 and 6):
    ``tests/test_fuzz_decode.py`` (the same seeds: 120 payload byte flips,
    46 truncations, 15 header tamperings, 64 corruption bursts, random
    garbage) of a 3 x 1,000 u16 archive (the tiled unpack) and of a
-   256 x 4,096 one with hot pixels (the one-pass unpack) through the
-   public ``decompress`` at its default device, each outcome equal to
-   ``decompress(blob, device="cpu")`` (the same clean error class or
-   equal pixels; ``device=False`` where the default sends the stream to
-   the host codec), the counts by outcome printed, the launches on the
-   routes ``FrameSpec`` gives the decoded mutations; then a synchronize
-   and a clean 256 x 512x512 round trip show the context healthy; (b) the
-   race drill: ``RACE_THREADS`` host threads launch at once, alternating
+   256 x 4,096 one with hot pixels (the one-pass unpack), and the
+   mutations past the first chunk of a 520 x 1,024 one (``pipeline_corpus``:
+   the pipelined decode in chunks of 256, 256 and 8 frames, on the
+   one-pass unpack and then the tiled; flips, streams that end inside
+   chunk 2 or 3, bursts), through the public ``decompress`` at its
+   default device, each outcome equal to ``decompress(blob,
+   device="cpu")`` (the same clean error class or equal pixels;
+   ``device=False`` where the default sends the stream to the host
+   codec), the counts by outcome printed, the launches on the routes
+   ``FrameSpec`` gives the decoded mutations; on the 520-frame base also
+   (``pipeline_cases``) two crafted sidecars (exact pixels, one
+   RuntimeWarning at ``stream.sidecar_tables`` each), ``iter_decode
+   (fetch=False)`` through a stream that ends inside chunk 2 (the plain
+   versions' exception class before any chunk: the walk of chunk k + 1
+   precedes the yield of chunk k) and one that ends inside chunk 3 (chunk
+   1 equal to the plain versions', then their exception class), and 20
+   pipelines closed with chunk 2 in flight before a clean decode; then a
+   synchronize and a clean 256 x 512x512 round trip show the context
+   healthy; (b) the race drill: ``RACE_THREADS`` host threads launch at once, alternating
    both unpacks of u8/u16 and of i16/i32 batches, both packs of u8/u16
    frames and all four kernels on u32 frames in blocks of 3, 64 and 512
    values (kernel instances shared at different shared-memory sizes,
@@ -127,9 +142,17 @@ the tiled unpack. Phases, one line each (more for phases 5 and 6):
    default device and ``encode --stream --host`` (SHA-256 equal),
    ``decode --stream`` (a BigTIFF by ``needs_bigtiff``, held chunk by
    chunk through ``TiffStream`` against the frames drawn again) and
-   ``verify``, each step's host-clock frames/s printed. The launches of
-   (a) and (b), which are not traffic, are checked but not counted; those
-   of (c) join the kernels line.
+   ``verify``, each step's host-clock frames/s printed; (d) the
+   bounds-checked build (``_build.select_checked``: every ``TRPX_CHECK``
+   a device assert) in a child process (``--checked``), since a failed
+   check poisons its context: the library's self-test trips its check in
+   a grandchild (``--checked-selftest``), which must fail and name the
+   line; then (a)'s three bases and cases, each outcome equal to the
+   normal build's in this process, the hostile tables of
+   ``tests/test_torch_cuda.py::test_unpack_kernels_on_hostile_tables``
+   and (b)'s drill at ``CHECKED_RACE_CALLS`` calls a thread; the child
+   must exit 0. The launches of (a), (b) and (d), which are not traffic,
+   are checked but not counted; those of (c) join the kernels line.
 
 It then prints the card line, a JSON line of per-kernel results and, last,
 ``{"ok": true, "device": {...}}``. Any failure exits non-zero before that
@@ -183,13 +206,23 @@ WORKER_TIMEOUT_S = 120.0
 BENCH_DISTINCT = 3
 BENCH_REPS = 3
 #: phase 11(a): (frames, values) of the hostile corpus's base archives of
-#: u16, the first decoded by the tiled unpack, the second by the one-pass
-HOSTILE_BASES = ((3, 1000), (256, 4096))
+#: u16, the first decoded by the tiled unpack, the second by the one-pass,
+#: the third by the pipelined decode in chunks of PIPE_CHUNK (256, 256 and
+#: 8 frames: the one-pass unpack, then the tiled) with its mutations past
+#: the first chunk
+HOSTILE_BASES = ((3, 1000), (256, 4096), (520, 1024))
+PIPE_CHUNK = 256
+#: phase 11(a): pipelines of the third base closed after their first chunk
+ABANDONED = 20
 #: the clean outcomes of a hostile archive besides a decode
 OK_ERRORS = (ValueError, TypeError, OverflowError, KeyError, IndexError)
 #: phase 11(b): host threads of the race drill and calls a thread
 RACE_THREADS = 4
 RACE_CALLS = 100
+#: phase 11(d): calls a thread of the race drill under the bounds-checked
+#: build, and the time limit (seconds) of its child process
+CHECKED_RACE_CALLS = 25
+CHECKED_TIMEOUT_S = 600
 #: phase 11(c): BASELINE config 4, a movie of 512x512 u16 frames through
 #: the acquisition pipeline of docs/DEPLOY.md, drawn and compared in
 #: chunks of MOVIE_CHUNK frames
@@ -1319,6 +1352,70 @@ def hostile_corpus(base: bytes, garbage: bool = False) -> list:
     return out
 
 
+def _frame_starts(base: bytes) -> np.ndarray:
+    """The byte offset of every frame of the archive `base` in its
+    payload, and the payload's end, from the native walk."""
+    from trpx_tpu_torch import native
+    from trpx_tpu_torch.format.pycodec import TrpxArchive
+
+    arch = TrpxArchive.from_bytes(base)
+    meta = arch.meta
+    return native.walk(arch.payload, meta.number_of_frames,
+                       meta.number_of_values, meta.block,
+                       want_poffs=False)[2]
+
+
+def _truncated(base: bytes, cut: int) -> bytes:
+    """The archive `base` with its payload cut at byte `cut` and its
+    header's memory_size set to match: a stream that ends early."""
+    hdr_end = base.index(b"/>") + 2
+    hdr = base[:hdr_end].decode("latin1")
+    size = len(base) - hdr_end
+    hdr = hdr.replace(f'memory_size="{size}"', f'memory_size="{cut}"')
+    return hdr.encode("latin1") + base[hdr_end:hdr_end + cut]
+
+
+def pipeline_corpus(base: bytes, chunk: int = PIPE_CHUNK) -> list:
+    """(kind, blob) mutations of the archive `base` past its first chunk of
+    `chunk` frames, where the pipelined decode has that chunk's copies and
+    unpack in flight, with the seeds of :func:`hostile_corpus`: 120 byte
+    flips (seed 0) in the payload of frames `chunk` and later; 46
+    truncations (seed 1: 40 cuts, and the first two bytes of chunks 2 and
+    3 and the payload's last byte) inside chunks 2 and 3, each with the
+    header's memory_size set to the cut, so that the stream ends there and
+    the decode meets the end inside a chunk; 64 bursts of 8-64 corrupt
+    bytes (seeds 0-3, 16 each) past the first chunk. The frame offsets
+    come from the base's native walk."""
+    hdr_end = base.index(b"/>") + 2
+    starts = _frame_starts(base)
+    size, F = int(starts[-1]), len(starts) - 1
+    lo = int(starts[chunk])          # the second chunk's first byte
+    out = []
+    rng = np.random.default_rng(0)
+    for _ in range(120):
+        blob = bytearray(base)
+        i = int(rng.integers(hdr_end + lo, len(blob)))
+        blob[i] ^= int(rng.integers(1, 256))
+        out.append(("flip", bytes(blob)))
+    rng = np.random.default_rng(1)
+    cuts = set(int(rng.integers(lo, size)) for _ in range(40))
+    cuts |= {lo, lo + 1, size - 1}
+    if F > 2 * chunk:
+        third = int(starts[2 * chunk])
+        cuts |= {third, third + 1}
+    out += [("truncation", _truncated(base, cut)) for cut in sorted(cuts)]
+    for seed in range(4):
+        rng = np.random.default_rng(seed)
+        for _ in range(16):
+            blob = bytearray(base)
+            start = int(rng.integers(hdr_end + lo, len(blob) - 64))
+            ln = int(rng.integers(8, 64))
+            blob[start:start + ln] = rng.integers(
+                0, 256, size=ln, dtype=np.uint8).tobytes()
+            out.append(("burst", bytes(blob)))
+    return out
+
+
 def _outcome(fn):
     """The clean exception class a call raised, or its output."""
     try:
@@ -1327,28 +1424,169 @@ def _outcome(fn):
         return type(e)
 
 
-def hostile_phase(card: str) -> None:
+def _digest(outcome) -> str:
+    """An outcome of :func:`_outcome` as a string: the exception class's
+    name, or the output's dtype, shape and SHA-256."""
+    import hashlib
+
+    if isinstance(outcome, type):
+        return outcome.__name__
+    a = np.ascontiguousarray(outcome)
+    return (f"{a.dtype.str}{a.shape} "
+            f"{hashlib.sha256(a.tobytes()).hexdigest()}")
+
+
+def _decode_routes(spec, frames: int) -> set:
+    """The unpacks ``decompress`` launches on `frames` such frames: one
+    batch, or the pipelined decode's chunks above PIPE_CHUNK frames."""
+    if frames <= PIPE_CHUNK:
+        return {_route(spec, frames)[1]}
+    return {_route(spec, min(PIPE_CHUNK, frames - lo))[1]
+            for lo in range(0, frames, PIPE_CHUNK)}
+
+
+def _hostile_base(F: int, n: int, seed: int):
+    """A base archive of the corpus: (F, n) u16 Poisson(3) frames with 20
+    hot pixels a frame at 65535, from `seed`, and their native encoding."""
+    from trpx_tpu_torch.native import codec as ncodec
+
+    rng = np.random.default_rng(seed)
+    stack = rng.poisson(3.0, size=(F, n)).astype(np.uint16)
+    stack[:, rng.integers(0, n, 20)] = 65535     # hot pixels
+    return stack, ncodec.encode(stack).to_bytes()
+
+
+def pipeline_cases(stack: np.ndarray, base: bytes, workdir: Path) -> list:
+    """Phase 11(a)'s hostile cases of the pipelined decode besides the
+    corpus, on the base archive `base` of the frames `stack` (more than
+    PIPE_CHUNK frames), each on the card with its launches on the routes:
+    (1) two sidecars that pass every load-time gate but disagree with the
+    stream (a width in a frame of chunk 2, the offsets of chunk 3 shifted
+    a byte) through ``decompress(path)``: exact pixels and exactly one
+    RuntimeWarning at site ``stream.sidecar_tables`` each; (2)
+    ``iter_decode(fetch=False)`` of the base cut inside chunk 2: chunk 1 a
+    device tensor equal to the plain versions' chunk 1, then the plain
+    versions' exception class; (3) ABANDONED pipelines closed after their
+    first chunk (chunk 2's copies and unpack in flight, its pinned buffers
+    and side-stream output freed), then a clean decode, exact. Returns an
+    outcome string per case."""
+    import warnings
+
+    import trpx_tpu_torch
+    from trpx_tpu_torch import _fallback, api
+    from trpx_tpu_torch.format.pycodec import TrpxArchive
+    from trpx_tpu_torch.io.trpx import read_trpx, write_index, write_trpx
+    from trpx_tpu_torch.ops import FrameSpec
+    from trpx_tpu_torch.runtime import iter_decode
+
+    F, n = stack.shape
+    spec = FrameSpec.for_dtype(n, np.uint16)
+    arch = TrpxArchive.from_bytes(base)
+    out = []
+    # (1) sidecars that disagree with the stream
+    path = workdir / "pipeline.trpx"
+    write_trpx(arch, path, index=True)
+    good = read_trpx(path)
+    for kind in ("width", "offsets"):
+        offs = np.asarray(good.frame_index).copy()
+        widths = np.asarray(good.width_table).copy()
+        if kind == "width":        # a frame of chunk 2
+            widths[PIPE_CHUNK + 44, 3] = 6 if widths[PIPE_CHUNK + 44,
+                                                     3] != 6 else 5
+        else:                      # chunk 3 starts a byte late
+            offs[2 * PIPE_CHUNK:] += 1
+        write_index(path, offs, arch.meta.memory_size, widths=widths)
+        if read_trpx(path).width_table is None:
+            raise AssertionError(f"phase 11(a) sidecar ({kind}): a "
+                                 f"load-time gate refused it")
+        _fallback._seen.discard("stream.sidecar_tables")
+        _zero_counts()
+        with warnings.catch_warnings(record=True) as rec:
+            warnings.simplefilter("always")
+            got = trpx_tpu_torch.decompress(path)
+        said = [w for w in rec if issubclass(w.category, RuntimeWarning)
+                and "fallback at stream.sidecar_tables" in str(w.message)]
+        if got.dtype != stack.dtype or not np.array_equal(got, stack):
+            raise AssertionError(f"phase 11(a) sidecar ({kind}): the "
+                                 f"decode is not exact")
+        if len(said) != 1:
+            raise AssertionError(f"phase 11(a) sidecar ({kind}): "
+                                 f"{len(said)} warnings at "
+                                 f"stream.sidecar_tables, expected 1")
+        _expect_route(f"phase 11(a) sidecar ({kind})", _read_counts(),
+                      _decode_routes(spec, F))
+        out.append(f"sidecar {kind}: exact, 1 warning")
+    # (2) fetch=False through a stream that ends inside chunk 2, then
+    # inside chunk 3. The walk of chunk k + 1 precedes the yield of chunk
+    # k (in both packages), so the first fails before chunk 1 is yielded;
+    # the second yields chunk 1, then fails with chunk 2's unpack in
+    # flight
+    starts = _frame_starts(base)
+    for k in (2, 3):
+        blob = _truncated(base, int(starts[(k - 1) * PIPE_CHUNK]) + 1)
+        _zero_counts()
+        card = iter_decode(blob, np.uint16, PIPE_CHUNK, fetch=False)
+        plain = iter_decode(blob, np.uint16, PIPE_CHUNK, device="cpu",
+                            fetch=False)
+        said = "before chunk 1, "
+        if k == 3:
+            (got, nf), (want, wnf) = next(card), next(plain)
+            on_default = got.device.type == api._torch_device(None).type
+            if not (on_default and nf == wnf
+                    and torch.equal(got.cpu(), want)):
+                raise AssertionError("phase 11(a) fetch=False: chunk 1 "
+                                     "differs from the plain versions'")
+            said = "chunk 1 exact, chunk 2 "
+        after = _outcome(lambda: next(card)), _outcome(lambda: next(plain))
+        if not isinstance(after[0], type) or after[0] is not after[1]:
+            raise AssertionError(f"phase 11(a) fetch=False, cut in chunk "
+                                 f"{k}: the card gave {after[0]}, the "
+                                 f"plain versions {after[1]}")
+        _expect_route(f"phase 11(a) fetch=False, cut in chunk {k}",
+                      _read_counts(), {"unpack"})
+        out.append(f"fetch=False cut in chunk {k}: {said}"
+                   f"{after[0].__name__}")
+    # (3) pipelines abandoned with chunk 2 in flight
+    _zero_counts()
+    for _ in range(ABANDONED):
+        gen = iter_decode(base, np.uint16, PIPE_CHUNK)
+        first = next(gen)
+        gen.close()
+        if not np.array_equal(first, stack[:PIPE_CHUNK]):
+            raise AssertionError("phase 11(a) abandoned: chunk 1 differs")
+    got = trpx_tpu_torch.decompress(base)
+    if not np.array_equal(got, stack):
+        raise AssertionError("phase 11(a) abandoned: the clean decode "
+                             "after them differs")
+    _expect_route("phase 11(a) abandoned", _read_counts(),
+                  _decode_routes(spec, F))
+    out.append(f"{ABANDONED} abandoned: the next decode exact")
+    return out
+
+
+def hostile_phase(card: str, workdir: Path | None = None,
+                  expect: list | None = None) -> list:
     """Phase 11(a): the hostile corpus of each base archive through the
     public ``decompress`` at its default device; every outcome equals
     ``decompress(blob, device="cpu")``'s (``device=False``'s where the
-    default routes the stream to the host codec); launches on the routes
-    ``FrameSpec`` gives the decoded mutations; then the context is
-    healthy. Its launches are not traffic: checked, not counted."""
+    default routes the stream to the host codec), or with `expect` (the
+    outcome strings of an earlier run) equals that run's instead; launches
+    on the routes ``FrameSpec`` gives the decoded mutations; on the third
+    base, :func:`pipeline_cases` too (in `workdir`, else a temporary
+    directory); then the context is healthy. Returns the outcome strings.
+    Its launches are not traffic: checked, not counted."""
     import warnings
 
     import trpx_tpu_torch
     from trpx_tpu_torch import api
     from trpx_tpu_torch.format.pycodec import TrpxArchive
-    from trpx_tpu_torch.native import codec as ncodec
     from trpx_tpu_torch.ops import FrameSpec
 
-    msgs = []
-    for (F, n), seed in zip(HOSTILE_BASES, (7, SEED + 11)):
-        rng = np.random.default_rng(seed)
-        stack = rng.poisson(3.0, size=(F, n)).astype(np.uint16)
-        stack[:, rng.integers(0, n, 20)] = 65535     # hot pixels
-        base = ncodec.encode(stack).to_bytes()
-        corpus = hostile_corpus(base, garbage=F == HOSTILE_BASES[0][0])
+    msgs, digests = [], []
+    for (F, n), seed in zip(HOSTILE_BASES, (7, SEED + 11, SEED + 14)):
+        stack, base = _hostile_base(F, n, seed)
+        corpus = (hostile_corpus(base, garbage=F == HOSTILE_BASES[0][0])
+                  if F <= PIPE_CHUNK else pipeline_corpus(base))
         counts: dict[str, int] = {}
         routes: set = set()
         on_card = 0
@@ -1364,26 +1602,25 @@ def hostile_phase(card: str) -> None:
             with warnings.catch_warnings():
                 warnings.simplefilter("ignore", RuntimeWarning)
                 got = _outcome(lambda: trpx_tpu_torch.decompress(blob))
-                want = _outcome(lambda: trpx_tpu_torch.decompress(
-                    blob, device="cpu" if kernel else False))
-            if isinstance(got, type) or isinstance(want, type):
-                same = got is want
-            else:
-                same = (got.dtype == want.dtype and got.shape == want.shape
-                        and np.array_equal(got, want))
-            if not same:
+                if expect is None:
+                    want = _digest(_outcome(lambda: trpx_tpu_torch.decompress(
+                        blob, device="cpu" if kernel else False)))
+                else:
+                    want = expect[len(digests)]
+            digests.append(_digest(got))
+            if digests[-1] != want:
                 raise AssertionError(
                     f"phase 11(a) {F}x{n} {kind}: the card gave "
-                    f"{got if isinstance(got, type) else 'pixels'}, the "
-                    f"plain versions "
-                    f"{want if isinstance(want, type) else 'other pixels'}")
+                    f"{digests[-1]}, "
+                    + ("the plain versions" if expect is None
+                       else "the normal build") + f" {want}")
             key = got.__name__ if isinstance(got, type) else "decoded"
             counts[key] = counts.get(key, 0) + 1
             if kernel and not isinstance(got, type):
                 on_card += 1
                 spec = FrameSpec.for_dtype(meta.number_of_values, dtype,
                                            meta.block)
-                routes.add(_route(spec, meta.number_of_frames)[1])
+                routes |= _decode_routes(spec, meta.number_of_frames)
         got = _read_counts()
         _expect_route(f"phase 11(a) {F}x{n}", got, routes)
         msgs.append(f"{F}x{n} u16 base ({'+'.join(sorted(routes))}): "
@@ -1391,14 +1628,28 @@ def hostile_phase(card: str) -> None:
                     + ", ".join(f"{k} {v}" for k, v in sorted(counts.items()))
                     + f" ({on_card} decoded on the card), launches {got}, "
                     f"{time.perf_counter() - t0:.1f} s")
+        if F > PIPE_CHUNK:
+            t0 = time.perf_counter()
+            with tempfile.TemporaryDirectory(dir=workdir) as d:
+                cases = pipeline_cases(stack, base, Path(d))
+            if expect is not None and cases != expect[len(digests):][
+                    :len(cases)]:
+                raise AssertionError(f"phase 11(a) pipeline cases: {cases}, "
+                                     f"the normal build's differ")
+            digests += cases
+            msgs.append("; ".join(cases)
+                        + f", {time.perf_counter() - t0:.1f} s")
     torch.cuda.synchronize()
     rng = np.random.default_rng(SEED + 12)
     r = _drive(_frames(rng, F_MAIN, SIDE * SIDE).reshape(F_MAIN, SIDE, SIDE))
     print(f"phase 11(a) hostile corpus through decompress on {card}, each "
-          f"outcome == the plain versions' (the same clean error class or "
-          f"equal pixels): " + "; ".join(msgs) + f"; then synchronize and a "
-          f"clean {F_MAIN}x{SIDE}x{SIDE} round trip, launches "
-          f"{r['launches']}: context healthy", flush=True)
+          f"outcome == the "
+          + ("plain versions'" if expect is None else "normal build's")
+          + " (the same clean error class or equal pixels): "
+          + "; ".join(msgs) + f"; then synchronize and a clean "
+          f"{F_MAIN}x{SIDE}x{SIDE} round trip, launches {r['launches']}: "
+          f"context healthy", flush=True)
+    return digests
 
 
 def race_drill(dev, card: str, calls: int = RACE_CALLS) -> None:
@@ -1510,6 +1761,128 @@ def race_drill(dev, card: str, calls: int = RACE_CALLS) -> None:
           f"of u8/u16/i16/i32, both packs of u8/u16, all four kernels on "
           f"u32 in blocks of 3/64/512), every result exact, "
           f"{wall:.1f} s, launches {got}", flush=True)
+
+
+def _selftest_line() -> int:
+    """The line of ``csrc/pack.cu`` whose TRPX_CHECK the checked
+    library's self-test trips."""
+    from trpx_tpu_torch import _build
+
+    lines = (_build.CSRC / "pack.cu").read_text().splitlines()
+    return 1 + next(i for i, line in enumerate(lines)
+                    if "trpx_checked_selftest trips this line" in line)
+
+
+def _checked_selftest() -> int:
+    """``chip_smoke.py --checked-selftest``: loads the bounds-checked
+    library and runs its self-test, whose TRPX_CHECK fails and leaves the
+    context unusable. Exits 0 only if the self-test returned no error,
+    which means that the asserts were not compiled in."""
+    import ctypes
+
+    from trpx_tpu_torch import _build
+
+    _build.select_checked()
+    lib = _build.load()
+    rc = lib.trpx_checked_selftest(0)
+    print(f"trpx_checked_selftest returned {rc} "
+          f"({lib.trpx_cuda_error_string(rc).decode()})", flush=True)
+    ctypes.CDLL(None).fflush(None)   # the device assert's message
+    return 0 if rc == 0 else 3
+
+
+def _checked_child(expect_path: str, workdir: str) -> int:
+    """``chip_smoke.py --checked EXPECT WORKDIR``: phase 11(d) in a process
+    of its own, on the bounds-checked build: the self-test in a
+    grandchild, which must fail and name its line; phase 11(a)'s three
+    bases and pipeline cases, each outcome equal to the normal build's
+    (EXPECT, a JSON list of hostile_phase's outcome strings); the
+    hostile tables of tests/test_torch_cuda.py; the race drill at
+    CHECKED_RACE_CALLS calls a thread. A TRPX_CHECK that fails prints its
+    file, line and thread and makes the next CUDA call raise, so this
+    process exits non-zero. Prints the phase's times as its last line."""
+    import importlib.util
+
+    from trpx_tpu_torch import _build
+
+    t0 = time.perf_counter()
+    _build.select_checked()
+    so = _build.build(checked=True)
+    _build.load()
+    t_load = time.perf_counter() - t0
+    dev = torch.device("cuda:0")
+    card = torch.cuda.get_device_name(0)
+    t = time.perf_counter()
+    r = subprocess.run([sys.executable, str(Path(__file__).resolve()),
+                        "--checked-selftest"], capture_output=True,
+                       text=True, timeout=300)
+    said = r.stdout + r.stderr
+    where = f"pack.cu:{_selftest_line()}"
+    if r.returncode == 0 or where not in said or "Assertion" not in said:
+        raise AssertionError(f"phase 11(d): the self-test exited "
+                             f"{r.returncode} without an assert at {where}:"
+                             f"\n{said[-3000:]}")
+    named = next(line for line in said.splitlines() if where in line)
+    t_self = time.perf_counter() - t
+    t = time.perf_counter()
+    expect = json.loads(Path(expect_path).read_text())
+    got = hostile_phase(card, Path(workdir), expect=expect)
+    t_corpus = time.perf_counter() - t
+    t = time.perf_counter()
+    spec = importlib.util.spec_from_file_location(
+        "test_torch_cuda", Path(__file__).resolve().parent / "tests"
+        / "test_torch_cuda.py")
+    cards = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(cards)
+    for dt in (np.uint16, np.uint8, np.int32):
+        cards.test_unpack_kernels_on_hostile_tables(dev, dt)
+    t_tables = time.perf_counter() - t
+    t = time.perf_counter()
+    race_drill(dev, card, calls=CHECKED_RACE_CALLS)
+    t_race = time.perf_counter() - t
+    torch.cuda.synchronize()
+    print(json.dumps({"library": so.name, "load_s": t_load,
+                      "selftest": named.strip()[-240:],
+                      "selftest_s": t_self, "outcomes": len(got),
+                      "corpus_s": t_corpus, "tables_s": t_tables,
+                      "race_s": t_race}))
+    return 0
+
+
+def checked_phase(card: str, expect: list, workdir: Path,
+                  build_s: float) -> None:
+    """Phase 11(d): the bounds-checked build over the hostile inputs, in a
+    child process (``--checked``), since a failed check leaves a sticky
+    error that would poison this process's context. Fails unless the
+    child exits 0; prints its output's end otherwise."""
+    t0 = time.perf_counter()
+    exp = workdir / "expect.json"
+    exp.write_text(json.dumps(expect))
+    try:
+        r = subprocess.run([sys.executable, str(Path(__file__).resolve()),
+                            "--checked", str(exp), str(workdir)],
+                           capture_output=True, text=True,
+                           timeout=CHECKED_TIMEOUT_S)
+    except subprocess.TimeoutExpired as e:
+        raise AssertionError(f"phase 11(d): the checked child ran past "
+                             f"{CHECKED_TIMEOUT_S} s:\n"
+                             f"{(e.stdout or '')[-4000:]}") from e
+    if r.returncode != 0:
+        raise AssertionError(f"phase 11(d): the checked child exited "
+                             f"{r.returncode}:\n{r.stdout[-6000:]}\n"
+                             f"{r.stderr[-6000:]}")
+    res = json.loads(r.stdout.strip().splitlines()[-1])
+    for line in r.stdout.strip().splitlines()[:-1]:
+        print(f"phase 11(d) child: {line}", flush=True)
+    print(f"phase 11(d) bounds-checked build ({card}; {res['library']}, "
+          f"built in {build_s:.1f} s beside the normal build, loaded in "
+          f"{res['load_s']:.1f} s): self-test tripped its check in a "
+          f"grandchild ({res['selftest_s']:.1f} s): {res['selftest']}; "
+          f"{res['outcomes']} hostile outcomes == the normal build's "
+          f"({res['corpus_s']:.1f} s), hostile tables of 3 targets "
+          f"({res['tables_s']:.1f} s), race drill {RACE_THREADS} threads x "
+          f"{CHECKED_RACE_CALLS} calls ({res['race_s']:.1f} s): no check "
+          f"failed; phase {time.perf_counter() - t0:.1f} s", flush=True)
 
 
 def _sha256(path: Path) -> str:
@@ -1684,12 +2057,33 @@ def main() -> int:
         raise RuntimeError("the native host codec (trpx_tpu_torch.native) "
                            "did not build")
 
-    # phase 2: build the kernels from the checkout's sources
+    # phase 2: build the kernels from the checkout's sources, and beside
+    # them the bounds-checked build of phase 11(d)
+    import threading
+
+    checked: dict = {}
+
+    def build_checked():
+        t = time.perf_counter()
+        try:
+            checked["so"] = _build.build(checked=True)
+        except Exception as e:   # raised below, in this thread
+            checked["error"] = e
+        checked["s"] = time.perf_counter() - t
+
     t0 = time.perf_counter()
+    builder = threading.Thread(target=build_checked)
+    builder.start()
     so = _build.build()
+    t_build = time.perf_counter() - t0
     _build.load()
-    print(f"phase 2 build: {time.perf_counter() - t0:.2f} s -> "
-          f"{so.relative_to(_build.CSRC.parent.parent)}", flush=True)
+    builder.join()
+    if "error" in checked:
+        raise checked["error"]
+    root = _build.CSRC.parent.parent
+    print(f"phase 2 build: {t_build:.2f} s -> {so.relative_to(root)}; "
+          f"bounds-checked build beside it {checked['s']:.2f} s -> "
+          f"{checked['so'].relative_to(root)}", flush=True)
 
     def inputs(fr, block=12):
         """Device inputs of the kernels for frames `fr` (F, n) in blocks of
@@ -1719,6 +2113,7 @@ def main() -> int:
         }
 
     err = dict.fromkeys(_counters(), 0)
+    current = torch.cuda.current_device()
 
     def check(name, fr, kernels, block=12, tile=None):
         """The named kernels (the tiled ones at `tile`-block tiles, None:
@@ -1730,6 +2125,10 @@ def main() -> int:
         for k in kernels:
             fn, plain = calls(m, tile)[k]
             got, want = fn(), plain()
+            if torch.cuda.current_device() != current:
+                raise AssertionError(f"{k} kernel on {name} left the thread "
+                                     f"on device "
+                                     f"{torch.cuda.current_device()}")
             if k.startswith("pack"):
                 # a pack kernel defines each frame's words up to its bits
                 got = (stream_words(got[0], got[1]),) + tuple(got[1:])
@@ -2001,13 +2400,17 @@ def main() -> int:
     print(f"phase 10 {time.perf_counter() - t10:.1f} s", flush=True)
 
     # phase 11: the hostile corpus and the race drill (checked, not
-    # counted: neither is traffic), then BASELINE config 4's movie
+    # counted: neither is traffic), BASELINE config 4's movie, then the
+    # corpus, the hostile tables and the drill on the bounds-checked build
     t11 = time.perf_counter()
-    hostile_phase(card)
+    with tempfile.TemporaryDirectory(dir=work) as d:
+        outcomes = hostile_phase(card, Path(d))
     race_drill(dev, card)
     with tempfile.TemporaryDirectory(dir=work) as d:
         for k, v in _movie_phase(dev, card, Path(d)).items():
             launches[k] += v
+    with tempfile.TemporaryDirectory(dir=work) as d:
+        checked_phase(card, outcomes, Path(d), checked["s"])
     print(f"phase 11 {time.perf_counter() - t11:.1f} s", flush=True)
 
     sources = {"pack": ("pack.cu", "trpx_tpu/ops/pallas_pack.py:712"),
@@ -2038,4 +2441,8 @@ if __name__ == "__main__":
     if sys.argv[1:2] == ["--worker"]:
         a = sys.argv[2:]
         sys.exit(_worker(a[0], int(a[1]), int(a[2]), int(a[3]), a[4]))
+    if sys.argv[1:2] == ["--checked"]:
+        sys.exit(_checked_child(sys.argv[2], sys.argv[3]))
+    if sys.argv[1:2] == ["--checked-selftest"]:
+        sys.exit(_checked_selftest())
     sys.exit(main())

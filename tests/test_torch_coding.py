@@ -1,15 +1,23 @@
 """PyTorch port, host glue of ops/coding.py against the JAX package:
-FrameSpec, the plain plan tables, narrowing, the archive walk and the
-sidecar-table validation. Inputs come from numpy seeds; tolerance exact.
+FrameSpec, the plain plan tables, narrowing, the archive walk, the
+sidecar-table validation and its once-per-process warning. Inputs come
+from numpy seeds; tolerance exact.
 """
+
+import warnings
 
 import numpy as np
 import pytest
 import torch
 
 import jax.numpy as jnp
+from trpx_tpu import _fallback as jfallback
+from trpx_tpu import api as japi
 from trpx_tpu.format import pycodec as jpycodec
+from trpx_tpu.io.trpx import read_trpx as jread_trpx
 from trpx_tpu.ops import coding as jcoding
+from trpx_tpu_torch import _fallback as tfallback
+from trpx_tpu_torch.io.trpx import read_trpx, write_index, write_trpx
 from trpx_tpu_torch.format.pycodec import TrpxArchive
 from trpx_tpu_torch.native import codec as ncodec
 from trpx_tpu_torch.ops import coding as tcoding
@@ -179,3 +187,86 @@ def test_assemble_archive_matches_jax():
     ref = jcoding.assemble_archive(jspec, w, b, m, (10, 100))
     assert ours.to_bytes() == ref.to_bytes()
     np.testing.assert_array_equal(ours.frame_index, ref.frame_index)
+
+
+# ---------------------------------------- rejected sidecar: one warning ---
+
+
+@pytest.fixture
+def fresh_fallbacks(monkeypatch):
+    """Neither package has given a fallback warning in this process yet."""
+    monkeypatch.setattr(jfallback, "_seen", set())
+    monkeypatch.setattr(tfallback, "_seen", set())
+
+
+def rejected_sidecar(tmp_path, kind: str, F: int = 5, n: int = 1200):
+    """A ``.trpx`` file whose v2 sidecar passes every load-time gate (CRC,
+    frame count, payload size, increasing offsets, widths <= prolix_bits)
+    but whose tables disagree with each other, so that
+    ``validate_tables`` rejects them, and the file's frames. ``kind``:
+    "width", one width of frame 2 changed; "offsets", frame 3 starting
+    one byte late."""
+    rng = np.random.default_rng(33)
+    stack = rng.poisson(3.0, size=(F, n)).astype(np.uint16)
+    stack[:, rng.integers(0, n, 20)] = 65535
+    p = tmp_path / f"{kind}.trpx"
+    write_trpx(ncodec.encode(stack), p, index=True)
+    good = read_trpx(p)
+    offs = np.asarray(good.frame_index).copy()
+    widths = np.asarray(good.width_table).copy()
+    if kind == "width":
+        widths[2, 3] = 6 if widths[2, 3] != 6 else 5
+    else:
+        offs[3] += 1
+    write_index(p, offs, good.meta.memory_size, widths=widths)
+    arch = read_trpx(p)
+    assert arch.width_table is not None and arch.frame_index is not None
+    return p, stack
+
+
+def fallback_warnings(call, site: str) -> tuple:
+    """``call()``'s result and the messages of the fallback warnings at
+    ``site`` it gave."""
+    with warnings.catch_warnings(record=True) as rec:
+        warnings.simplefilter("always")
+        out = call()
+    return out, [str(w.message) for w in rec
+                 if issubclass(w.category, RuntimeWarning)
+                 and f"fallback at {site}" in str(w.message)]
+
+
+@pytest.mark.parametrize("kind", ["width", "offsets"])
+def test_rejected_sidecar_warns_once_per_process(tmp_path, kind,
+                                                 fresh_fallbacks):
+    """``ops.decode`` distrusts the tables, walks, decodes exactly and gives
+    one RuntimeWarning at site ``ops.sidecar_tables``, as the JAX package
+    does (``trpx_tpu/ops/coding.py``); a second decode gives none in
+    either package."""
+    p, stack = rejected_sidecar(tmp_path, kind)
+    for call in range(2):
+        out, ours = fallback_warnings(
+            lambda: tcoding.decode(read_trpx(p), np.uint16, device="cpu"),
+            "ops.sidecar_tables")
+        np.testing.assert_array_equal(out, stack)
+        ref, theirs = fallback_warnings(
+            lambda: japi.decompress(jread_trpx(p), dtype=np.uint16,
+                                    device=True), "ops.sidecar_tables")
+        np.testing.assert_array_equal(np.asarray(ref).reshape(stack.shape),
+                                      stack)
+        assert len(ours) == len(theirs) == (0 if call else 1)
+    assert ours == [] and theirs == []
+
+
+def test_rejected_sidecar_message_is_the_jax_packages(tmp_path,
+                                                      fresh_fallbacks):
+    """The port's message is the JAX package's, with its own prefix."""
+    p, _ = rejected_sidecar(tmp_path, "width")
+    _, ours = fallback_warnings(
+        lambda: tcoding.decode(read_trpx(p), np.uint16, device="cpu"),
+        "ops.sidecar_tables")
+    _, theirs = fallback_warnings(
+        lambda: japi.decompress(jread_trpx(p), dtype=np.uint16, device=True),
+        "ops.sidecar_tables")
+    assert ours[0].startswith("trpx_tpu_torch fallback at ops.sidecar_tables"
+                              " (revalidating header walk): ValueError: ")
+    assert ours[0].replace("trpx_tpu_torch", "trpx_tpu", 1) == theirs[0]

@@ -682,9 +682,65 @@ def test_launchers_from_many_threads(cuda):
     _smoke().race_drill(cuda, torch.cuda.get_device_name(cuda), calls=200)
 
 
-def test_hostile_corpus_on_card(cuda):
+def test_hostile_corpus_on_card(cuda, tmp_path):
     """``chip_smoke.py`` phase 11(a): the fuzz suite's mutations of a
     3 x 1,000 u16 archive (the tiled unpack) and of a 256 x 4,096 one (the
-    one-pass unpack) through the public ``decompress`` on the card, each
+    one-pass unpack), and those past the first chunk of a 520 x 1,024 one
+    (the pipelined decode: chunks of 256, 256 and 8 frames) with its
+    crafted sidecars, ``fetch=False`` through a stream that ends early and
+    abandoned pipelines, through the public decode on the card, each
     outcome that of the plain versions, then a clean round trip."""
-    _smoke().hostile_phase(torch.cuda.get_device_name(cuda))
+    _smoke().hostile_phase(torch.cuda.get_device_name(cuda), tmp_path)
+
+
+# ------------------------------------------- the caller's current device ---
+
+
+def _driver_device() -> int:
+    """The device of the calling thread's current CUDA driver context: the
+    state that the kernel library's own (static) CUDA runtime sets, and
+    that code on the driver API or on another runtime picks up."""
+    import ctypes
+
+    cu = ctypes.CDLL("libcuda.so.1")
+    ctx, dev = ctypes.c_void_p(), ctypes.c_int()
+    assert cu.cuCtxGetCurrent(ctypes.byref(ctx)) == 0 and ctx.value
+    assert cu.cuCtxGetDevice(ctypes.byref(dev)) == 0
+    return dev.value
+
+
+def test_launchers_leave_the_current_device(cuda, tmp_path):
+    """Each kernel launched on a card that is not the thread's current
+    one leaves the current device as it was (``csrc/common.cuh``
+    ``DeviceGuard``): torch's and the driver's current device, so a later
+    ``StreamingEncoder(device=None)`` and ``torch.empty(1,
+    device="cuda")`` land on the original card. Needs two cards: on one,
+    every launch is on the current card and the fault cannot show."""
+    from trpx_tpu_torch.runtime import StreamingEncoder
+
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA cards")
+    cur = torch.cuda.current_device()
+    other = torch.device("cuda", (cur + 1) % torch.cuda.device_count())
+    n = 5000
+    fr = _frames(np.uint16, n, seed=41)
+    spec = FrameSpec.for_dtype(n, np.uint16)
+    x = torch.from_numpy(_pad_batch(fr, spec)).to(other)
+    widths, words = walk_archive(ncodec.encode(fr), spec)
+    wd = torch.from_numpy(widths.astype(np.uint8)).to(other)
+    wo = torch.from_numpy(words.view(np.int32)).to(other)
+    odt = decoded_dtype(spec)
+    torch.empty(1, device="cuda")
+    assert _driver_device() == cur
+    for name, fn in (("pack", lambda: encode_batch(spec, x)),
+                     ("pack_tiled", lambda: encode_batch_tiled(spec, x)),
+                     ("unpack", lambda: decode_batch(spec, wo, wd, odt)),
+                     ("unpack_tiled",
+                      lambda: decode_batch_tiled(spec, wo, wd, odt))):
+        fn()
+        assert _driver_device() == cur, name
+        assert torch.cuda.current_device() == cur, name
+    torch.cuda.synchronize(other)
+    enc = StreamingEncoder(tmp_path / "s.trpx", nvalues=n, dtype=np.uint16)
+    assert enc._stream.device == torch.device("cuda", cur)
+    assert torch.empty(1, device="cuda").device == torch.device("cuda", cur)

@@ -104,3 +104,53 @@ def test_native_builds_into_the_port(monkeypatch):
                                     / "native")
     assert tnative._SRC == REPO / "trpx_tpu_torch" / "native" \
         / "host_codec.cpp"
+
+
+def test_trpx_io_source_is_the_jax_packages():
+    """``io/trpx.py`` is a verbatim copy: its imports of the package
+    (``native``, ``_fallback``, ``format``) resolve to the port's own."""
+    ours = (REPO / "trpx_tpu_torch" / "io" / "trpx.py").read_text()
+    assert ours == (REPO / "trpx_tpu" / "io" / "trpx.py").read_text()
+    assert "from .._fallback import warn_once" in ours
+
+
+def test_sidecar_walk_fallback_warns_once_as_jax(tmp_path, monkeypatch):
+    """A sidecar write whose native walk fails walks in pure Python and
+    gives one RuntimeWarning at site ``io.sidecar_walk``, the JAX
+    package's message under the port's prefix; a second write gives none,
+    and both packages' sidecars are the same bytes."""
+    import warnings
+
+    from trpx_tpu import _fallback as jfallback
+    from trpx_tpu_torch import _fallback as tfallback
+
+    monkeypatch.setattr(jfallback, "_seen", set())
+    monkeypatch.setattr(tfallback, "_seen", set())
+
+    def broken(*a, **k):
+        raise RuntimeError("native walk unavailable")
+
+    monkeypatch.setattr(tnative, "walk", broken)
+    monkeypatch.setattr(jnative, "walk", broken)
+    rng = np.random.default_rng(34)
+    stack = rng.poisson(3.0, size=(4, 700)).astype(np.uint16)
+    blob = tncodec.encode(stack).to_bytes()   # no frame index: a full walk
+    for call in range(2):
+        msgs = {}
+        for name, fmt, io in (("ours", tfmt, tio), ("theirs", jfmt, jio)):
+            with warnings.catch_warnings(record=True) as rec:
+                warnings.simplefilter("always")
+                io.write_trpx(fmt.TrpxArchive.from_bytes(blob),
+                              tmp_path / f"{name}.trpx", index=True)
+            msgs[name] = [str(w.message) for w in rec
+                          if "fallback at io.sidecar_walk" in str(w.message)]
+        assert len(msgs["ours"]) == len(msgs["theirs"]) == (0 if call else 1)
+        if not call:
+            assert msgs["ours"][0] == (
+                "trpx_tpu_torch fallback at io.sidecar_walk (serial "
+                "pure-Python walk for the sidecar index): RuntimeError: "
+                "native walk unavailable")
+            assert msgs["ours"][0].replace("trpx_tpu_torch", "trpx_tpu",
+                                           1) == msgs["theirs"][0]
+        assert (tmp_path / "ours.trpx.idx").read_bytes() == \
+            (tmp_path / "theirs.trpx.idx").read_bytes()

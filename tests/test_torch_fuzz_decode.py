@@ -11,6 +11,13 @@ outcomes, as in the JAX suite: a clean ValueError, TypeError,
 OverflowError, KeyError or IndexError, or a decode. Never a crash, a hang
 or a native memory fault.
 
+Archives of more than 256 frames take the pipelined decode (chunks of 256
+walked, gathered and unpacked while the previous chunk is in flight): the
+mutations of chip_smoke.py's 520-frame base past its first chunk, its
+crafted sidecars and ``fetch=False`` through a stream that ends early go
+through the port's ``iter_decode(device="cpu")`` and the JAX package's
+``iter_decode(device=True)``, outcome for outcome.
+
 Parity with the JAX package, exact: the port's "cpu" path gives the
 outcome of ``trpx_tpu.api.decompress(device=True)`` (jnp and Pallas in
 interpret mode on the CPU), the port's ``device=False`` that of the JAX
@@ -23,6 +30,7 @@ specification for clamping reads (tests/test_torch_cuda.py), not the TPU
 kernel's.
 """
 
+import functools
 import importlib.util
 import warnings
 from pathlib import Path
@@ -35,6 +43,7 @@ from test_torch_cuda import HOSTILE_KINDS, hostile_tables
 from trpx_tpu import api as japi
 from trpx_tpu.format import pycodec as jpycodec
 from trpx_tpu.io.trpx import read_trpx as jread_trpx
+from trpx_tpu.runtime import iter_decode as jiter_decode
 from trpx_tpu_torch import api as tapi
 from trpx_tpu_torch import native
 from trpx_tpu_torch.format import pycodec
@@ -374,3 +383,151 @@ def test_crafted_sidecar_inconsistent_tables(tmp_path):
     got = np.concatenate(list(iter_decode(read_trpx(p), np.uint16,
                                           chunk_frames=2, device="cpu")))
     np.testing.assert_array_equal(got, stack)
+
+
+# ------------------------------------------- the pipelined decode, >256 ---
+
+
+@functools.lru_cache(maxsize=1)
+def _smoke():
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", Path(__file__).resolve().parent.parent
+        / "chip_smoke.py")
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    return smoke
+
+
+@functools.lru_cache(maxsize=1)
+def _pipeline_base():
+    """chip_smoke.py phase 11(a)'s third base (520 x 1,024 u16: chunks of
+    256, 256 and 8 frames) and its corpus past the first chunk."""
+    smoke = _smoke()
+    (F, n), seed = smoke.HOSTILE_BASES[2], smoke.SEED + 14
+    stack, base = smoke._hostile_base(F, n, seed)
+    return stack, base, smoke.pipeline_corpus(base)
+
+
+def _chunks(fn):
+    """The concatenated chunks of an iter_decode, or its exception class."""
+    return _outcome(lambda: np.concatenate(list(fn())))
+
+
+PIPE_PARTS = 8
+
+
+@pytest.mark.parametrize("part", range(PIPE_PARTS))
+def test_pipelined_decode_past_the_first_chunk_matches_jax(part):
+    """Every mutation of the 520-frame base past its first chunk (flips,
+    streams that end inside chunks 2 and 3, bursts) through both
+    packages' pipelined decode at chunks of 256: the same clean error, or
+    equal pixels; in eight parts."""
+    _, _, corpus = _pipeline_base()
+    assert len(corpus) > 200
+    for kind, blob in corpus[part::PIPE_PARTS]:
+        ours = _chunks(lambda: iter_decode(blob, np.uint16, 256,
+                                           device="cpu"))
+        theirs = _chunks(lambda: jiter_decode(blob, np.uint16, 256,
+                                              device=True))
+        _same(ours, theirs, kind)
+
+
+def test_pipeline_corpus_lies_past_the_first_chunk():
+    """Each mutation leaves the first chunk's 256 frames as they were: the
+    flips and bursts change bytes of frames 256 and later, the
+    truncations end the stream inside chunk 2 or 3 with the header's
+    memory_size set to the cut."""
+    _, base, corpus = _pipeline_base()
+    smoke = _smoke()
+    starts = smoke._frame_starts(base)
+    hdr_end = base.index(b"/>") + 2
+    first = hdr_end + int(starts[256])
+    kinds = [k for k, _ in corpus]
+    assert kinds == (["flip"] * 120 + ["truncation"] * kinds.count(
+        "truncation") + ["burst"] * 64)
+    assert kinds.count("truncation") >= 40
+    for kind, blob in corpus:
+        meta = TrpxArchive.from_bytes(blob).meta
+        if kind == "truncation":
+            assert int(starts[256]) <= meta.memory_size < int(starts[-1])
+            cut_hdr = blob.index(b"/>") + 2
+            assert blob[cut_hdr:] == base[hdr_end:hdr_end
+                                          + meta.memory_size]
+        else:
+            assert len(blob) == len(base) and blob != base
+            assert blob[:first] == base[:first]
+
+
+@pytest.mark.parametrize("kind", ["width", "offsets"])
+def test_pipelined_decode_crafted_sidecar_matches_jax(tmp_path, kind):
+    """chip_smoke.py's crafted sidecars of the 520-frame base (a width in
+    a frame of chunk 2; the offsets of chunk 3 a byte late) pass every
+    load-time gate; both packages' pipelined decode distrusts them, walks
+    and decodes exactly, each with one warning at stream.sidecar_tables."""
+    from trpx_tpu import _fallback as jfallback
+    from trpx_tpu_torch import _fallback as tfallback
+
+    stack, base, _ = _pipeline_base()
+    p = tmp_path / "c.trpx"
+    write_trpx(TrpxArchive.from_bytes(base), p, index=True)
+    good = read_trpx(p)
+    offs = np.asarray(good.frame_index).copy()
+    widths = np.asarray(good.width_table).copy()
+    if kind == "width":
+        widths[300, 3] = 6 if widths[300, 3] != 6 else 5
+    else:
+        offs[512:] += 1
+    write_index(p, offs, good.meta.memory_size, widths=widths)
+    assert read_trpx(p).width_table is not None
+    assert jread_trpx(p).width_table is not None
+    for pkg, fallback, fn, arch in (
+            ("trpx_tpu_torch", tfallback,
+             lambda a: iter_decode(a, np.uint16, 256, device="cpu"),
+             read_trpx),
+            ("trpx_tpu", jfallback,
+             lambda a: jiter_decode(a, np.uint16, 256, device=True),
+             jread_trpx)):
+        fallback._seen.discard("stream.sidecar_tables")
+        with warnings.catch_warnings(record=True) as rec:
+            warnings.simplefilter("always")
+            got = np.concatenate(list(fn(arch(p))))
+        np.testing.assert_array_equal(got, stack)
+        said = [str(w.message) for w in rec
+                if "fallback at stream.sidecar_tables" in str(w.message)]
+        assert len(said) == 1 and said[0].startswith(pkg + " fallback")
+
+
+@pytest.mark.parametrize("chunk", [2, 3])
+def test_pipelined_fetch_false_through_an_early_end_matches_jax(chunk):
+    """``iter_decode(fetch=False)`` of the 520-frame base ending one byte
+    into chunk 2 or 3: the walk of chunk k + 1 precedes the yield of chunk
+    k in both packages, so an end inside chunk 2 raises before chunk 1 is
+    yielded, and one inside chunk 3 yields chunk 1 (equal to the JAX
+    package's) and then raises; the same exception class."""
+    stack, base, _ = _pipeline_base()
+    smoke = _smoke()
+    starts = smoke._frame_starts(base)
+    blob = smoke._truncated(base, int(starts[(chunk - 1) * 256]) + 1)
+    ours = iter_decode(blob, np.uint16, 256, device="cpu", fetch=False)
+    theirs = jiter_decode(blob, np.uint16, 256, device=True, fetch=False)
+    if chunk == 3:
+        (out, nf), (jout, jnf) = next(ours), next(theirs)
+        assert nf == jnf == 256
+        jvals = np.asarray(jout).reshape(256, -1)[:, :1024]
+        np.testing.assert_array_equal(out.numpy().astype(np.uint16),
+                                      jvals.astype(np.uint16))
+        np.testing.assert_array_equal(out.numpy(), stack[:256])
+    got = _outcome(lambda: next(ours))
+    want = _outcome(lambda: next(theirs))
+    assert isinstance(got, type) and got is want
+
+
+def test_abandoned_pipelines_leave_the_next_decode_exact():
+    """Pipelines closed after their first chunk (chunk 2 dispatched), 20
+    times; then a decode of the same archive is exact."""
+    stack, base, _ = _pipeline_base()
+    for _ in range(20):
+        gen = iter_decode(base, np.uint16, 256, device="cpu")
+        np.testing.assert_array_equal(next(gen), stack[:256])
+        gen.close()
+    np.testing.assert_array_equal(tapi.decompress(base, device="cpu"), stack)

@@ -39,6 +39,12 @@ from trpx_tpu_torch.runtime import (
 from trpx_tpu_torch.runtime import metrics as tmetrics
 from trpx_tpu_torch.runtime import stream as tstream
 
+from test_torch_coding import (  # noqa: F401 (a fixture)
+    fallback_warnings,
+    fresh_fallbacks,
+    rejected_sidecar,
+)
+
 REPO = Path(__file__).resolve().parent.parent
 
 
@@ -305,6 +311,32 @@ def test_iter_decode_uses_proven_sidecar_tables(tmp_path, monkeypatch):
     np.testing.assert_array_equal(got, fr)
     np.testing.assert_array_equal(arch.width_table,
                                   _compute_offsets(ncodec.encode(fr))[1])
+
+
+@pytest.mark.parametrize("kind", ["width", "offsets"])
+def test_iter_decode_rejected_sidecar_warns_once_per_process(
+        tmp_path, kind, fresh_fallbacks):
+    """The chunked ``iter_decode`` distrusts sidecar tables that
+    ``validate_tables`` rejects, walks chunk by chunk, decodes exactly and
+    gives one RuntimeWarning at site ``stream.sidecar_tables``, as the JAX
+    package's ``iter_decode`` does; a second decode gives none in either
+    package."""
+    from trpx_tpu.io.trpx import read_trpx as jread_trpx
+
+    p, stack = rejected_sidecar(tmp_path, kind)
+    for call in range(2):
+        got, ours = fallback_warnings(lambda: np.concatenate(list(
+            iter_decode(read_trpx(p), np.uint16, chunk_frames=2,
+                        device="cpu"))), "stream.sidecar_tables")
+        np.testing.assert_array_equal(got, stack)
+        ref, theirs = fallback_warnings(lambda: np.concatenate(list(
+            jiter_decode(jread_trpx(p), np.uint16, chunk_frames=2,
+                         device=True))), "stream.sidecar_tables")
+        np.testing.assert_array_equal(ref, stack)
+        assert len(ours) == len(theirs) == (0 if call else 1)
+        if not call:
+            assert ours[0].replace("trpx_tpu_torch", "trpx_tpu",
+                                   1) == theirs[0]
 
 
 def test_iter_decode_fetch_false_yields_device_tensors():

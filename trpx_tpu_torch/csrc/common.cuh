@@ -10,7 +10,43 @@
 
 #include <cuda_runtime.h>
 
+// Bounds checks. TRPX_CHECK(cond) guards a shared-memory or global index
+// against the extent its launcher passes: nothing in the normal build,
+// and under -DTRPX_CHECKED (_build.py:CHECKED_FLAGS) a device assert,
+// which prints the file, the line and the thread and leaves a sticky
+// cudaErrorAssert. TRPX_CHECKED_ARG(x) appends the argument ", x" only in
+// the checked build: an extent a kernel or helper needs for its checks
+// alone.
+#ifdef TRPX_CHECKED
+#include <cassert>
+#define TRPX_CHECK(cond) assert(cond)
+#define TRPX_CHECKED_ARG(...) , __VA_ARGS__
+#else
+#define TRPX_CHECK(cond) ((void)0)
+#define TRPX_CHECKED_ARG(...)
+#endif
+
 namespace trpx {
+
+// Restores the calling thread's current device when it leaves scope: the
+// C entry points set the device of their launch and leave the caller's
+// as they found it on every return.
+class DeviceGuard {
+ public:
+  DeviceGuard() : ok_(cudaGetDevice(&prev_) == cudaSuccess) {}
+  ~DeviceGuard() {
+    int now = prev_;
+    if (ok_ && cudaGetDevice(&now) == cudaSuccess && now != prev_) {
+      cudaSetDevice(prev_);
+    }
+  }
+  DeviceGuard(const DeviceGuard&) = delete;
+  DeviceGuard& operator=(const DeviceGuard&) = delete;
+
+ private:
+  int prev_ = 0;
+  bool ok_;
+};
 
 // Bits of a block header (format/spec.py:header_code): a repeat of the
 // previous block's width is one bit, else a 3-, 5- or 11-bit width code
@@ -69,9 +105,13 @@ struct BitWriter {
   int nbits;      // valid bits in acc
   uint64_t acc;
   bool first;     // the first word may hold the previous block's tail
+#ifdef TRPX_CHECKED
+  int cap;        // words of the stream buffer
+#endif
 
-  __device__ BitWriter(uint32_t* w, int start)
-      : words(w), word(start >> 5), nbits(start & 31), acc(0), first(true) {}
+  __device__ BitWriter(uint32_t* w, int start TRPX_CHECKED_ARG(int c))
+      : words(w), word(start >> 5), nbits(start & 31), acc(0), first(true)
+        TRPX_CHECKED_ARG(cap(c)) {}
 
   // Appends the n low bits of v (v < 2^n, n <= 33). nbits <= 31 on entry,
   // so v << nbits fits in 64 bits.
@@ -79,6 +119,7 @@ struct BitWriter {
     acc |= v << nbits;
     nbits += n;
     while (nbits >= 32) {
+      TRPX_CHECK(word >= 0 && word < cap);
       if (first) {
         atomicOr(words + word, uint32_t(acc));
         first = false;
@@ -93,6 +134,7 @@ struct BitWriter {
 
   // The last, partial word is shared with the next block.
   __device__ __forceinline__ void finish() {
+    TRPX_CHECK(!nbits || (word >= 0 && word < cap));
     if (nbits) atomicOr(words + word, uint32_t(acc));
   }
 };

@@ -132,6 +132,7 @@ __device__ __forceinline__ int look_back(const PackScratch& sc, int idx,
   int excl = 0;
   int j = idx - 1;
   const int first = idx - t;
+  TRPX_CHECK(first >= 0);
   while (j >= first) {
     const unsigned long long p = load_acquire(sc.incl + j);
     if (p & kPublished) return excl + int(uint32_t(p));
@@ -157,13 +158,14 @@ __device__ __forceinline__ void cp_async16(unsigned dst, const void* src) {
 // 16-byte chunk, committed as one group, and a register load for this
 // thread's ragged-end element, if any (at most 30, one a thread). Returns
 // the phase `shift`; land() stores the ragged element once the copy is
-// waited for.
+// waited for. Checked build: the row holds row_len elements, dst dst_cap.
 template <typename T>
 struct Staging {
   int shift, rag_at;
   T rag;
-  __device__ __forceinline__ void start(const T* row, int lo, int hi,
-                                        T* dst) {
+  __device__ __forceinline__ void start(
+      const T* row, int lo, int hi,
+      T* dst TRPX_CHECKED_ARG(int row_len, int dst_cap)) {
     constexpr int kVec = 16 / int(sizeof(T));
     shift = int((reinterpret_cast<uintptr_t>(row + lo) & 15u) / sizeof(T));
     const T* base = row + lo - shift;  // 16-byte aligned
@@ -171,7 +173,12 @@ struct Staging {
     const int c_lo = shift ? 1 : 0;
     const int c_hi = count / kVec;
     const unsigned d = unsigned(__cvta_generic_to_shared(dst));
+    // element e of base is element lo - shift + e of the row, inside
+    // [lo, hi) for e in [shift, count)
+    TRPX_CHECK(0 <= lo && lo <= hi && hi <= row_len);
     for (int c = c_lo + int(threadIdx.x); c < c_hi; c += kNT) {
+      TRPX_CHECK(c * kVec >= shift && (c + 1) * kVec <= count &&
+                 (c + 1) * kVec <= dst_cap);
       cp_async16(d + 16u * unsigned(c), base + c * kVec);
     }
     asm volatile("cp.async.commit_group;" ::: "memory");
@@ -182,6 +189,8 @@ struct Staging {
     rag_at = k < heads ? shift + k
                        : (k - heads < count - tail_start
                               ? tail_start + (k - heads) : -1);
+    TRPX_CHECK(rag_at < 0 ||
+               (rag_at >= shift && rag_at < count && rag_at < dst_cap));
     if (rag_at >= 0) rag = base[rag_at];
   }
   __device__ __forceinline__ void land(T* dst) const {
@@ -211,10 +220,12 @@ __device__ __forceinline__ uint32_t in_window(uint64_t v, int rel, int n) {
 // The last 32 bits of a tile's stream of `total` >= 32 bits, by one warp:
 // they lie in the tile's last 32 blocks (every block has a header bit), so
 // lane k ORs in the bits of block nblk - 1 - k that fall into the window.
+// Checked build: vals holds vcap values.
 template <int kB, typename T>
 __device__ __forceinline__ uint32_t stream_tail(
     const T* vals, int shift, int pre, int B, int n, int b0, int nblk,
-    int total, const uint8_t* s_w, const int* s_off) {
+    int total, const uint8_t* s_w, const int* s_off TRPX_CHECKED_ARG(
+        int vcap)) {
   const int i = nblk - 1 - int(threadIdx.x & 31);
   uint32_t acc = 0;
   if (i >= 0) {
@@ -226,6 +237,7 @@ __device__ __forceinline__ uint32_t stream_tail(
       acc |= in_window(header_value(w, prev), p, hb);
       p += hb;
       const int count = min(B, n - (b0 + i) * B);
+      TRPX_CHECK(shift + (i + pre) * B + count <= vcap);
       const T* xv = vals + shift + (i + pre) * B;
       for (int j = 0; j < count && w; ++j, p += w) {
         acc |= in_window(field(xv[j], w), p, w);
@@ -331,16 +343,20 @@ struct Block12 {
 // `shift`): steps 2-4 of the design note, up to the tile's stream in
 // s_out, its offset and the previous tile's tail in s_misc; returns the
 // tile's bit count. Every thread must call it; it ends with a barrier,
-// after which no staged value is read.
+// after which no staged value is read. Checked build: vals holds vcap
+// values, s_out out_words words.
 template <typename T, int kB>
 __device__ __forceinline__ int pack_tile(
     int v, const T* vals, int shift, int F, int n, int B, int nb, int tiles,
     int tile_blocks, int n_words, uint32_t* __restrict__ words,
     int* __restrict__ bits, const PackScratch& sc, uint32_t* s_out,
-    int* s_off, uint8_t* s_w, int* s_scan, int* s_misc) {
+    int* s_off, uint8_t* s_w, int* s_scan,
+    int* s_misc TRPX_CHECKED_ARG(int vcap, int out_words)) {
   const TileOf tk(v, F, tile_blocks, nb);
   const int idx = tk.f * tiles + tk.t;
   const int pre = tk.pre;
+  TRPX_CHECK(tk.f < F && idx < F * tiles && tk.nblk >= 1 &&
+             tk.nblk <= tile_blocks);
 
   // 2. widths (s_w[i + 1] of block b0 + i, s_w[0] of the block before),
   //    then block offsets: a thread scans a run of consecutive blocks.
@@ -351,6 +367,8 @@ __device__ __forceinline__ int pack_tile(
   for (int i = threadIdx.x; i < tk.nblk + pre; i += kNT) {
     const int b = tk.b0 - pre + i;
     const int count = min(B, n - b * B);
+    // s_w holds tile_blocks + 1 widths
+    TRPX_CHECK(i + 1 - pre <= tile_blocks && shift + i * B + count <= vcap);
     const T* xv = vals + shift + i * B;
     const int w = fast && count == 12 ? Block12<T>(xv).width()
                                       : tile_block_width<kB>(xv, count);
@@ -363,12 +381,14 @@ __device__ __forceinline__ int pack_tile(
   const int i1 = min(i0 + per, tk.nblk);
   int sum = 0;
   for (int i = i0; i < i1; ++i) {
+    TRPX_CHECK(i < tile_blocks);
     const int w = s_w[i + 1];
     sum += header_bits(w, s_w[i]) + w * min(B, n - (tk.b0 + i) * B);
   }
   int total;
   int run = cta_scan<kNT>(sum, s_scan, total);
   for (int i = i0; i < i1; ++i) {
+    TRPX_CHECK(i < tile_blocks);
     const int w = s_w[i + 1];
     s_off[i] = run;
     run += header_bits(w, s_w[i]) + w * min(B, n - (tk.b0 + i) * B);
@@ -381,7 +401,8 @@ __device__ __forceinline__ int pack_tile(
   if (threadIdx.x < 32) {
     const uint32_t tail =
         total >= 32 ? stream_tail<kB>(vals, shift, pre, B, n, tk.b0, tk.nblk,
-                                      total, s_w, s_off)
+                                      total, s_w,
+                                      s_off TRPX_CHECKED_ARG(vcap))
                     : 0u;
     if (threadIdx.x == 0) {
       store_release(sc.agg + idx,
@@ -403,12 +424,14 @@ __device__ __forceinline__ int pack_tile(
 
   // 4. assemble the tile's stream from bit 0
   for (int i = threadIdx.x; i < tk.nblk; i += kNT) {
+    TRPX_CHECK(i < tile_blocks);
     const int w = s_w[i + 1];
     const int prev = s_w[i];
     const int count = min(B, n - (tk.b0 + i) * B);
-    BitWriter bw(s_out, s_off[i]);
+    BitWriter bw(s_out, s_off[i] TRPX_CHECKED_ARG(out_words));
     bw.put(header_value(w, prev), header_bits(w, prev));
     if (w) {
+      TRPX_CHECK(shift + (i + pre) * B + count <= vcap);
       const T* xv = vals + shift + (i + pre) * B;
       if (fast && count == 12) {
         Block12<T>(xv).put_fields(bw, w);
@@ -433,12 +456,12 @@ __device__ __forceinline__ int pack_tile(
 
 // Step 5 of tile v, whose stream of `total` bits is in s_out and whose
 // offset and previous tail pack_tile left in s_misc: the tile's words,
-// shifted to the offset's phase. Reads no staged value.
-__device__ __forceinline__ void write_tile(int v, int total, int F,
-                                           int tiles, int n_words,
-                                           uint32_t* __restrict__ words,
-                                           const uint32_t* s_out,
-                                           const int* s_misc) {
+// shifted to the offset's phase. Reads no staged value. Checked build:
+// s_out holds out_words words.
+__device__ __forceinline__ void write_tile(
+    int v, int total, int F, int tiles, int n_words,
+    uint32_t* __restrict__ words, const uint32_t* s_out,
+    const int* s_misc TRPX_CHECKED_ARG(int out_words)) {
   const int t = v / F, f = v - t * F;
   const int off = s_misc[1];
   const uint32_t pred = uint32_t(s_misc[2]);
@@ -446,6 +469,7 @@ __device__ __forceinline__ void write_tile(int v, int total, int F,
   const int nw = ((off + total) >> 5) - (off >> 5) + (t == tiles - 1);
   uint32_t* out = words + size_t(f) * n_words + (off >> 5);
   for (int k = threadIdx.x; k < nw; k += kNT) {
+    TRPX_CHECK(off >= 0 && (off >> 5) + k < n_words && k < out_words);
     const uint32_t hi = s_out[k];
     const uint32_t lo = k ? s_out[k - 1] : pred;
     out[k] = r ? __funnelshift_l(lo, hi, r) : hi;
@@ -485,7 +509,8 @@ pack_kernel(const T* __restrict__ frames, int F, int n, int stride,
   {
     const TileOf tl(v, F, tile_blocks, nb);
     stage.start(frames + size_t(tl.f) * stride, (tl.b0 - tl.pre) * B,
-                (tl.b0 + tl.nblk) * B, s_vals);
+                (tl.b0 + tl.nblk) * B,
+                s_vals TRPX_CHECKED_ARG(stride, vals_bytes / int(sizeof(T))));
   }
   while (true) {
     // the next ticket, taken while this tile's copy lands
@@ -493,19 +518,22 @@ pack_kernel(const T* __restrict__ frames, int F, int n, int stride,
     stage.land(s_vals);
     if (threadIdx.x == 0 && v < F) s_w[0] = 0;  // a frame starts at 0
     __syncthreads();
-    const int total =
-        pack_tile<T, kB>(v, s_vals, stage.shift, F, n, B, nb, tiles,
-                         tile_blocks, n_words, words, bits, sc, s_out, s_off,
-                         s_w, s_scan, s_misc);
+    const int total = pack_tile<T, kB>(
+        v, s_vals, stage.shift, F, n, B, nb, tiles, tile_blocks, n_words,
+        words, bits, sc, s_out, s_off, s_w, s_scan,
+        s_misc TRPX_CHECKED_ARG(vals_bytes / int(sizeof(T)), out_words));
     // the staged values are free: the next tile's copy overlaps this
     // tile's writes
     const int vn = s_misc[4];
     if (vn < n_tiles) {
       const TileOf tn(vn, F, tile_blocks, nb);
       stage.start(frames + size_t(tn.f) * stride, (tn.b0 - tn.pre) * B,
-                  (tn.b0 + tn.nblk) * B, s_vals);
+                  (tn.b0 + tn.nblk) * B,
+                  s_vals TRPX_CHECKED_ARG(stride,
+                                          vals_bytes / int(sizeof(T))));
     }
-    write_tile(v, total, F, tiles, n_words, words, s_out, s_misc);
+    write_tile(v, total, F, tiles, n_words, words, s_out,
+               s_misc TRPX_CHECKED_ARG(out_words));
     if (vn >= n_tiles) break;
     __syncthreads();  // the writes are done with s_out and s_misc
     if (threadIdx.x == 0) s_misc[3] = 0;
@@ -569,6 +597,7 @@ extern "C" int trpx_pack(const void* frames, int itemsize, int is_signed,
                          int tile_blocks, int smem_bytes, void* words,
                          void* bits, void* scratch, int device,
                          void* stream) {
+  const trpx::DeviceGuard guard;  // restores the caller's device
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return int(err);
   if (F <= 0 || n <= 0 || block <= 0 || n_words < 2 || tile_blocks < 32 ||
@@ -605,3 +634,29 @@ extern "C" int trpx_pack(const void* frames, int itemsize, int is_signed,
 extern "C" const char* trpx_cuda_error_string(int code) {
   return cudaGetErrorString(cudaError_t(code));
 }
+
+#ifdef TRPX_CHECKED
+namespace {
+
+// Fails its one TRPX_CHECK in every thread: the checked library's proof
+// that its asserts are compiled in.
+__global__ void checked_selftest(int limit) {
+  const int i = int(threadIdx.x);
+  TRPX_CHECK(i < limit);  // trpx_checked_selftest trips this line
+}
+
+}  // namespace
+
+// Checked build only: launches checked_selftest on device `device` and
+// waits. Returns the sticky cudaErrorAssert; the process's context is
+// unusable afterwards, so call it in a process of its own.
+extern "C" int trpx_checked_selftest(int device) {
+  const trpx::DeviceGuard guard;  // restores the caller's device
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return int(err);
+  checked_selftest<<<1, 1>>>(0);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return int(err);
+  return int(cudaDeviceSynchronize());
+}
+#endif

@@ -115,6 +115,10 @@ plan_tiles(const T* __restrict__ frames, int n, int stride, int block_rt,
   const int b0 = t * tb;
   const int nblk = min(tb, nb - b0);
   const int lane = threadIdx.x & 31;
+  // the values read below are the tile's, of the row's stride elements;
+  // s_or holds tb blocks
+  TRPX_CHECK(t < tiles && nblk >= 1 && nblk <= tb &&
+             (static_cast<long long>(b0) + nblk) * B <= stride);
   for (int i = threadIdx.x; i < nblk; i += kNT) s_or[i] = 0u;
   if (threadIdx.x == 0) s_max = 0;
   __syncthreads();
@@ -142,8 +146,10 @@ plan_tiles(const T* __restrict__ frames, int n, int stride, int block_rt,
     const int lead = __shfl_sync(full, i0, 0);
     if (__all_sync(full, !valid || (i0 == i1 && i0 == lead))) {
       m = __reduce_or_sync(full, m);
+      TRPX_CHECK(!(lane == 0 && m) || (lead >= 0 && lead < nblk));
       if (lane == 0 && m) atomicOr(s_or + lead, m);
     } else if (valid && i0 == i1) {
+      TRPX_CHECK(i0 >= 0 && i0 < nblk);
       if (m) atomicOr(s_or + i0, m);
     } else if (valid) {
       int i = i0, j = j0;
@@ -152,6 +158,7 @@ plan_tiles(const T* __restrict__ frames, int n, int stride, int block_rt,
       for (int q = 0; q < kVec; ++q) {
         if (c * kVec + q >= lo && c * kVec + q < hi) {
           mm |= magnitude(v.e[q]);
+          TRPX_CHECK(i >= 0 && i < nblk);
           if (++j == B) {
             if (mm) atomicOr(s_or + i, mm);
             mm = 0;
@@ -160,6 +167,7 @@ plan_tiles(const T* __restrict__ frames, int n, int stride, int block_rt,
           }
         }
       }
+      TRPX_CHECK(!mm || (i >= 0 && i < nblk));
       if (mm) atomicOr(s_or + i, mm);
     }
   }
@@ -168,6 +176,7 @@ plan_tiles(const T* __restrict__ frames, int n, int stride, int block_rt,
   // widths into the table, and in place of the ORs
   uint8_t* wd = widths + size_t(f) * nb + b0;
   for (int i = threadIdx.x; i < nblk; i += kNT) {
+    TRPX_CHECK(b0 + i < nb);
     const int w = width_of<T>(s_or[i]);
     wd[i] = uint8_t(w);
     s_or[i] = uint32_t(w);
@@ -203,7 +212,10 @@ pack_starts(const int* __restrict__ part, const int* __restrict__ tmax,
   uint32_t* row = words + size_t(f) * n_words;
   const int total = scan_tile_starts<kScanThreads>(
       part, widths, nb, tb, tiles, start, s_scan,
-      [row](int, int P) { row[P >> 5] = 0u; });
+      [row TRPX_CHECKED_ARG(n_words)](int, int P) {
+        TRPX_CHECK(P >= 0 && (P >> 5) < n_words);
+        row[P >> 5] = 0u;
+      });
   int mx = 0;
   for (int t = threadIdx.x; t < tiles; t += kScanThreads) {
     mx = max(mx, tmax[size_t(f) * tiles + t]);
@@ -217,9 +229,12 @@ pack_starts(const int* __restrict__ part, const int* __restrict__ tmax,
   }
 }
 
-// Ors v (a header, at most 12 bits) into the words at bit `pos`.
-__device__ __forceinline__ void or_bits(uint32_t* words, int pos, uint32_t v) {
+// Ors v (a header, at most 12 bits) into the words at bit `pos`. Checked
+// build: words holds cap words.
+__device__ __forceinline__ void or_bits(uint32_t* words, int pos,
+                                        uint32_t v TRPX_CHECKED_ARG(int cap)) {
   const uint64_t x = uint64_t(v) << (pos & 31);
+  TRPX_CHECK(pos >= 0 && (pos >> 5) + ((x >> 32) ? 1 : 0) < cap);
   atomicOr(words + (pos >> 5), uint32_t(x));
   if (x >> 32) atomicOr(words + (pos >> 5) + 1, uint32_t(x >> 32));
 }
@@ -244,15 +259,20 @@ place_tiles(const T* __restrict__ frames, int n, int stride, int block_rt,
 
   // the tile's bit range and widths (s_w[0]: the block before the tile, 0
   // for the first), then each block's first payload bit in the tile
+  // the values read below are the tile's, of the row's stride elements
+  TRPX_CHECK(t < tiles && nblk >= 1 && nblk <= tb &&
+             (static_cast<long long>(b0) + nblk) * B <= stride);
   const int P = start[size_t(f) * (tiles + 1) + t];
   const int bits = start[size_t(f) * (tiles + 1) + t + 1] - P;
   const uint8_t* wd = widths + size_t(f) * nb;
   for (int i = threadIdx.x; i <= nblk; i += kNT) {
     const int b = b0 - 1 + i;
+    TRPX_CHECK(i <= tb && b < nb);  // s_w: tb + 1
     s_w[i] = b >= 0 ? wd[b] : 0;
   }
   __syncthreads();
-  block_offsets<kNT, true>(s_w, nblk, B, n, b0, s_off, s_scan);
+  block_offsets<kNT, true>(s_w, nblk, B, n, b0, s_off,
+                           s_scan TRPX_CHECKED_ARG(tb));
   __syncthreads();
 
   // bit p of the tile is bit r + p of its word 0, word P / 32 of the frame
@@ -278,13 +298,14 @@ place_tiles(const T* __restrict__ frames, int n, int stride, int block_rt,
     const bool last = c1 == nv;
     const int e1 = last ? r + bits : r + s_off[0] + c1 * w1;  // its end
     const int used = ((e1 + 31) >> 5) - g0;
+    TRPX_CHECK(P >= 0 && used <= words_cap);
     for (int k = threadIdx.x; k < used; k += kNT) s_words[k] = k ? 0u : carry;
     __syncthreads();
     if (c0 == 0) {
       for (int i = threadIdx.x; i < nblk; i += kNT) {
         const int w = s_w[i + 1], prev = s_w[i];
         or_bits(s_words, r + s_off[i] - header_bits(w, prev),
-                header_value(w, prev));
+                header_value(w, prev) TRPX_CHECKED_ARG(words_cap));
       }
     }
     // each thread a vector of values: it ORs their fields, a run of
@@ -297,9 +318,10 @@ place_tiles(const T* __restrict__ frames, int n, int stride, int block_rt,
       const int lo = max(e0, lo_e), hi = min(e0 + kVec, hi_e);
       int i = (lo - shift) / B;
       int j = lo - shift - i * B;
+      TRPX_CHECK(i >= 0 && i < nblk);
       int w = s_w[i + 1];
       int count = block_count(b0 + i, B, n);
-      BitWriter bw(s_words, 0);
+      BitWriter bw(s_words, 0 TRPX_CHECKED_ARG(words_cap));
       bool open = false;
 #pragma unroll
       for (int q = 0; q < kVec; ++q) {
@@ -309,12 +331,14 @@ place_tiles(const T* __restrict__ frames, int n, int stride, int block_rt,
             open = false;
             ++i;
             j = 0;
+            TRPX_CHECK(i < nblk);
             w = s_w[i + 1];
             count = block_count(b0 + i, B, n);
           }
           if (w && j < count) {
             if (!open) {
-              bw = BitWriter(s_words, r + s_off[i] + j * w - 32 * g0);
+              bw = BitWriter(s_words, r + s_off[i] + j * w -
+                                          32 * g0 TRPX_CHECKED_ARG(words_cap));
               open = true;
             }
             bw.put(field(v.e[q], w), w);
@@ -330,6 +354,7 @@ place_tiles(const T* __restrict__ frames, int n, int stride, int block_rt,
     // neighbours (zeroed by pack_starts)
     const int g1 = last ? (e1 + 31) >> 5 : e1 >> 5;
     for (int g = g0 + int(threadIdx.x); g < g1; g += kNT) {
+      TRPX_CHECK(g - g0 < words_cap && (P >> 5) + g < n_words);
       const uint32_t x = s_words[g - g0];
       const int q = 32 * g - r;
       if (q >= 0 && q + 32 <= bits) {
@@ -339,6 +364,7 @@ place_tiles(const T* __restrict__ frames, int n, int stride, int block_rt,
       }
     }
     if (last) break;
+    TRPX_CHECK(!(e1 & 31) || g1 - g0 < words_cap);
     carry = (e1 & 31) ? s_words[g1 - g0] : 0u;
     g0 = g1;
     __syncthreads();  // the next chunk rewrites s_words
@@ -413,6 +439,7 @@ extern "C" int trpx_pack_tiled(const void* frames, int itemsize,
                                int smem_bytes, void* words, void* bits,
                                void* maxw, void* scratch, int device,
                                void* stream) {
+  const trpx::DeviceGuard guard;  // restores the caller's device
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return int(err);
   if (F <= 0 || n <= 0 || block <= 0 || n_words < 2 || tile_blocks <= 0 ||

@@ -36,6 +36,7 @@ __device__ __forceinline__ int cta_scan(int x, int* scratch, int& total) {
     const int y = __shfl_up_sync(0xffffffffu, incl, d);
     if (lane >= d) incl += y;
   }
+  TRPX_CHECK(warp < kW);  // scratch holds kW + 1 ints
   if (lane == 31) scratch[warp] = incl;
   __syncthreads();
   if (warp == 0) {
@@ -62,10 +63,12 @@ __device__ __forceinline__ int cta_scan(int x, int* scratch, int& total) {
 // the range moves with one 16-byte load and store, the ragged ends element
 // by element; nothing outside [lo, hi) is read. dst must hold
 // hi - lo + 16 / sizeof(T) - 1 elements. Every thread must call it; the
-// caller synchronises before reading dst.
+// caller synchronises before reading dst. Checked build: the row holds
+// row_len elements, dst dst_cap.
 template <int kNT, typename T>
-__device__ __forceinline__ int stage_tile(const T* __restrict__ row, int lo,
-                                          int hi, T* dst) {
+__device__ __forceinline__ int stage_tile(
+    const T* __restrict__ row, int lo, int hi,
+    T* dst TRPX_CHECKED_ARG(int row_len, int dst_cap)) {
   constexpr int kVec = 16 / int(sizeof(T));
   const int shift =
       int((reinterpret_cast<uintptr_t>(row + lo) & 15u) / sizeof(T));
@@ -75,16 +78,23 @@ __device__ __forceinline__ int stage_tile(const T* __restrict__ row, int lo,
   const int c_hi = count / kVec;
   const uint4* src = reinterpret_cast<const uint4*>(base);
   uint4* d4 = reinterpret_cast<uint4*>(dst);
+  TRPX_CHECK(0 <= lo && lo <= hi && hi <= row_len);
+  // element e of base is element lo - shift + e of the row, inside
+  // [lo, hi) for e in [shift, count)
   for (int c = c_lo + int(threadIdx.x); c < c_hi; c += kNT) {
+    TRPX_CHECK(c * kVec >= shift && (c + 1) * kVec <= count &&
+               (c + 1) * kVec <= dst_cap);
     d4[c] = __ldcs(src + c);  // read once: stream past the caches
   }
   // the ragged ends: [shift, head_end) and [tail_start, count)
   const int head_end = min(c_lo * kVec, count);
   const int tail_start = max(c_hi * kVec, head_end);
   for (int e = shift + int(threadIdx.x); e < head_end; e += kNT) {
+    TRPX_CHECK(e >= shift && e < count && e < dst_cap);
     dst[e] = base[e];
   }
   for (int e = tail_start + int(threadIdx.x); e < count; e += kNT) {
+    TRPX_CHECK(e >= shift && e < count && e < dst_cap);
     dst[e] = base[e];
   }
   return shift;
@@ -117,22 +127,24 @@ __device__ __forceinline__ int block_count(int b, int B, int n) {
 // kPayload the first payload bit, into s_off[i]. A thread scans a run of
 // consecutive blocks. Every thread must call it; s_scan is kNT / 32 + 1
 // ints; the caller synchronises before reading s_off. Returns the tile's
-// bits.
+// bits. Checked build: s_off holds cap blocks, s_w cap + 1.
 template <int kNT, bool kPayload>
-__device__ __forceinline__ int block_offsets(const uint8_t* s_w, int nblk,
-                                             int B, int n, int b0,
-                                             int* s_off, int* s_scan) {
+__device__ __forceinline__ int block_offsets(
+    const uint8_t* s_w, int nblk, int B, int n, int b0, int* s_off,
+    int* s_scan TRPX_CHECKED_ARG(int cap)) {
   const int per = (nblk + kNT - 1) / kNT;
   const int i0 = min(int(threadIdx.x) * per, nblk);
   const int i1 = min(i0 + per, nblk);
   int sum = 0;
   for (int i = i0; i < i1; ++i) {
+    TRPX_CHECK(i >= 0 && i < cap);
     const int w = s_w[i + 1];
     sum += header_bits(w, s_w[i]) + w * block_count(b0 + i, B, n);
   }
   int total;
   int run = cta_scan<kNT>(sum, s_scan, total);
   for (int i = i0; i < i1; ++i) {
+    TRPX_CHECK(i >= 0 && i < cap);
     const int w = s_w[i + 1];
     const int hb = header_bits(w, s_w[i]);
     s_off[i] = kPayload ? run + hb : run;
@@ -163,6 +175,7 @@ __device__ __forceinline__ int scan_tile_starts(
   const int t1 = min(t0 + per, T);
   auto bits = [&](int t) {
     const int b = t * tb;
+    TRPX_CHECK(t >= 0 && t < T && b < nb);
     return p[t] + header_bits(wd[b], t ? int(wd[b - 1]) : 0);
   };
   int sum = 0;
@@ -170,6 +183,7 @@ __device__ __forceinline__ int scan_tile_starts(
   int total;
   int run = cta_scan<kNT>(sum, s_scan, total);
   for (int t = t0; t < t1; ++t) {
+    TRPX_CHECK(t >= 0 && t < T);
     st[t] = run;
     visit(t, run);
     run += bits(t);
@@ -207,10 +221,13 @@ struct TileSmem {
 };
 
 // The staged words of a tile: words [lo, hi) of the row, word lo at
-// src[lo - origin].
+// src[lo - origin]; in the checked build, src holds cap words.
 struct Staged {
   const uint32_t* src;
   int origin, lo, hi;
+#ifdef TRPX_CHECKED
+  int cap;
+#endif
 };
 
 // The value at bit `off` of the frame: the two-word window at word
@@ -219,6 +236,8 @@ struct Staged {
 template <typename OutT, bool kSigned>
 __device__ __forceinline__ OutT field_at(const Staged& sw, int off, int w) {
   const int idx = min(max(off >> 5, sw.lo), sw.hi - 2) - sw.origin;
+  TRPX_CHECK(sw.hi - sw.lo >= 2 && idx >= sw.lo - sw.origin &&
+             idx + 1 < sw.hi - sw.origin && idx + 1 < sw.cap);
   const uint32_t* src = sw.src;
   const uint64_t win = uint64_t(src[idx]) | (uint64_t(src[idx + 1]) << 32);
   uint32_t u = uint32_t(win >> (off & 31));
@@ -236,11 +255,12 @@ __device__ __forceinline__ OutT field_at(const Staged& sw, int off, int w) {
 // Value v is field j = v % B of block i = v / B - b0, at bit
 // P + s_off[i] + j * w of the frame (s_off: payload offsets). The block
 // size is a compile-time constant when kB > 0 (the division is a
-// multiply).
+// multiply). Checked build: the tile has nblk blocks, the row n values.
 template <int kNT, typename OutT, bool kSigned, int kB>
 __device__ __forceinline__ void extract_tile(
     const Staged& sw, int P, int B, int b0, int v0, int v1, const int* s_off,
-    const uint8_t* s_w, OutT* __restrict__ o) {
+    const uint8_t* s_w, OutT* __restrict__ o TRPX_CHECKED_ARG(int nblk,
+                                                              int n)) {
   constexpr int kV = 16 / int(sizeof(OutT));
   const int BB = kB > 0 ? kB : B;
   const int mis = int((reinterpret_cast<uintptr_t>(o + v0) & 15u) /
@@ -253,6 +273,7 @@ __device__ __forceinline__ void extract_tile(
     const int bq = v / BB;
     int j = v - bq * BB;
     int i = bq - b0;
+    TRPX_CHECK(i >= 0 && i < nblk);
     int w = s_w[i + 1];
     int off = P + s_off[i] + j * w;
     union {
@@ -266,16 +287,19 @@ __device__ __forceinline__ void extract_tile(
       if (++j == BB && q + 1 < kV) {  // the next value opens a block
         j = 0;
         ++i;
+        TRPX_CHECK(i < nblk);
         w = s_w[i + 1];
         off = P + s_off[i];
       }
     }
+    TRPX_CHECK(v >= 0 && v + kV <= n);
     *reinterpret_cast<uint4*>(o + v) = pack.u;
   }
   for (int v = threadIdx.x; v < (a0 - v0) + (v1 - a1); v += kNT) {
     const int vv = v < a0 - v0 ? v0 + v : a1 + (v - (a0 - v0));
     const int bq = vv / BB;
     const int i = bq - b0;
+    TRPX_CHECK(i >= 0 && i < nblk && vv >= 0 && vv < n);
     const int w = s_w[i + 1];
     o[vv] = field_at<OutT, kSigned>(sw, P + s_off[i] + (vv - bq * BB) * w,
                                     w);

@@ -60,11 +60,13 @@ tile_offsets(const uint8_t* __restrict__ widths, int n, int block, int nb,
     const int b1 = min((t + 1) * tile_blocks, nb);
     int s = 0;
     for (int b = t * tile_blocks + lane; b < b1; b += 32) {
+      TRPX_CHECK(b >= 0 && b < nb);
       const int w = wd[b];
       s += header_bits(w, b ? int(wd[b - 1]) : 0) +
            w * min(block, n - b * block);
     }
     s = __reduce_add_sync(0xffffffffu, s);
+    TRPX_CHECK(t < tiles);
     if (lane == 0) row[t] = s;
   }
   __syncthreads();
@@ -99,11 +101,13 @@ unpack_tiles(const uint32_t* __restrict__ words,
 
   // 1. the tile's bit range, then its widths (s_w[0]: the block before the
   //    tile, 0 for the first) and words, loads all in flight together
+  TRPX_CHECK(t >= 0 && t < tiles && nblk >= 1 && nblk <= tile_blocks);
   const int P = ts[size_t(f) * (tiles + 1) + t];
   const int total = ts[size_t(f) * (tiles + 1) + t + 1] - P;
   const uint8_t* wd = widths + size_t(f) * nb;
   for (int i = threadIdx.x; i <= nblk; i += kNT) {
     const int b = b0 - 1 + i;
+    TRPX_CHECK(i <= tile_blocks && b < nb);  // s_w: tile_blocks + 1
     s_w[i] = b >= 0 ? wd[b] : 0;
   }
   // words [base, end): the tile's range and the window past its last
@@ -113,11 +117,13 @@ unpack_tiles(const uint32_t* __restrict__ words,
   const int base = max(min(P >> 5, W - 2), 0);
   const int end = max(min(min(((P + total) >> 5) + 2, W),
                           base + words_cap - 3), base + 2);
-  const int shift = stage_tile<kNT>(row, base, end, s_words);
+  const int shift = stage_tile<kNT>(row, base, end,
+                                    s_words TRPX_CHECKED_ARG(W, words_cap));
   __syncthreads();
 
   // 2. each block's first payload bit in the tile
-  block_offsets<kNT, true>(s_w, nblk, B, n, b0, s_off, s_scan);
+  block_offsets<kNT, true>(s_w, nblk, B, n, b0, s_off,
+                           s_scan TRPX_CHECKED_ARG(tile_blocks));
   __syncthreads();
 
   // 3. extract
@@ -125,8 +131,8 @@ unpack_tiles(const uint32_t* __restrict__ words,
   const int v1 = min((b0 + nblk) * B, n);
   OutT* o = out + size_t(f) * n;
   extract_tile<kNT, OutT, kSigned, kB>(
-      Staged{s_words, base - shift, base, end}, P, B, b0, v0, v1, s_off, s_w,
-      o);
+      Staged{s_words, base - shift, base, end TRPX_CHECKED_ARG(words_cap)}, P,
+      B, b0, v0, v1, s_off, s_w, o TRPX_CHECKED_ARG(nblk, n));
 }
 
 template <typename OutT, bool kSigned, int kB>
@@ -183,6 +189,7 @@ extern "C" int trpx_unpack(const void* words, const void* widths, int F,
                            int max_width, int smem_bytes, int is_signed,
                            int out_u16, void* out, void* tile_start,
                            int device, void* stream) {
+  const trpx::DeviceGuard guard;  // restores the caller's device
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return int(err);
   if (F <= 0 || n <= 0 || block <= 0 || W < 2 || tile_blocks < 32 ||

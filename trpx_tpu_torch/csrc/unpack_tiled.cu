@@ -70,6 +70,9 @@ tile_part_bits(const uint8_t* __restrict__ widths, int n, int block, int nb,
       uint4 u;
       uint8_t e[16];
     } v;
+    // element e of base is block b0 - shift + e of the row: every read
+    // below is of an e in [lo, hi) or lo - 1 > shift, inside [b0, b1)
+    TRPX_CHECK(b0 >= 0 && b1 <= nb && lo >= shift && hi <= count);
     if (lo == e0 && hi == e0 + 16) {
       v.u = *reinterpret_cast<const uint4*>(base + e0);
     } else {
@@ -94,6 +97,7 @@ tile_part_bits(const uint8_t* __restrict__ widths, int n, int block, int nb,
     }
   }
   sum = __reduce_add_sync(0xffffffffu, sum);
+  TRPX_CHECK(tile < tiles_total);
   if (lane == 0) part[tile] = sum;
 }
 
@@ -124,15 +128,18 @@ unpack_tiles(const uint32_t* __restrict__ words,
 
   // the tile's bit range and widths (s_w[0]: the block before the tile, 0
   // for the first), then each block's first payload bit in the tile
+  TRPX_CHECK(t >= 0 && t < T && nblk >= 1 && nblk <= tb);
   const int P = start[size_t(f) * (T + 1) + t];
   const int E = start[size_t(f) * (T + 1) + t + 1];
   const uint8_t* wd = widths + size_t(f) * nb;
   for (int i = threadIdx.x; i <= nblk; i += kNT) {
     const int b = b0 - 1 + i;
+    TRPX_CHECK(i <= tb && b < nb);  // s_w: tb + 1
     s_w[i] = b >= 0 ? wd[b] : 0;
   }
   __syncthreads();
-  block_offsets<kNT, true>(s_w, nblk, B, n, b0, s_off, s_scan);
+  block_offsets<kNT, true>(s_w, nblk, B, n, b0, s_off,
+                           s_scan TRPX_CHECKED_ARG(tb));
   __syncthreads();
 
   const uint32_t* row = words + size_t(f) * W;
@@ -153,11 +160,12 @@ unpack_tiles(const uint32_t* __restrict__ words,
     const int base = max(min(lo >> 5, W - 2), 0);
     const int end = max(min(min((hi >> 5) + 2, W), base + words_cap - 3),
                         base + 2);
-    const int shift = stage_tile<kNT>(row, base, end, s_words);
+    const int shift = stage_tile<kNT>(row, base, end,
+                                      s_words TRPX_CHECKED_ARG(W, words_cap));
     __syncthreads();
     extract_tile<kNT, OutT, kSigned, kB>(
-        Staged{s_words, base - shift, base, end}, P, B, b0, v0 + c0,
-        v0 + c1, s_off, s_w, o);
+        Staged{s_words, base - shift, base, end TRPX_CHECKED_ARG(words_cap)},
+        P, B, b0, v0 + c0, v0 + c1, s_off, s_w, o TRPX_CHECKED_ARG(nblk, n));
     if (!chunked) break;
     __syncthreads();  // the next chunk restages s_words
   }
@@ -227,6 +235,7 @@ extern "C" int trpx_unpack_tiled(const void* words, const void* widths,
                                  int smem_bytes, int is_signed, int out_u16,
                                  void* scratch, void* out, int device,
                                  void* stream) {
+  const trpx::DeviceGuard guard;  // restores the caller's device
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return int(err);
   if (F <= 0 || n <= 0 || block <= 0 || W < 2 || tile_blocks <= 0 ||

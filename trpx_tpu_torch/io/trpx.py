@@ -29,7 +29,6 @@ from __future__ import annotations
 
 import os
 import struct
-import warnings
 import zlib
 from pathlib import Path
 
@@ -213,10 +212,10 @@ def _compute_offsets(archive: TrpxArchive):
                 offs = fstarts[:-1]
             return offs, widths.astype(np.uint8)
     except Exception as e:
-        warnings.warn(
-            "trpx_tpu_torch: native walk for the sidecar index failed "
-            f"({type(e).__name__}: {e}); serial pure-Python walk instead",
-            RuntimeWarning, stacklevel=3)
+        from .._fallback import warn_once
+
+        warn_once("io.sidecar_walk", e,
+                  "serial pure-Python walk for the sidecar index")
     from ..format.pycodec import walk_frame
 
     nb = -(-meta.number_of_values // meta.block)

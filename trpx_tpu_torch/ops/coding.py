@@ -50,6 +50,7 @@ import torch
 from torch.profiler import record_function
 
 from .. import native
+from .._fallback import warn_once
 from ..format import pycodec
 from ..format.header import TrpxMeta
 from ..format.pycodec import TrpxArchive, walk_frame
@@ -438,8 +439,9 @@ def walk_archive(archive: TrpxArchive, spec: FrameSpec):
         ends = np.concatenate([starts[1:], [meta.memory_size]])
         try:
             validate_tables(spec, meta, wtab, starts, ends)
-        except ValueError:
+        except ValueError as e:
             # distrust both tables and walk the stream instead
+            warn_once("ops.sidecar_tables", e, "revalidating header walk")
             wtab = fidx0 = None
     else:
         wtab = None

@@ -404,7 +404,7 @@ def encode_batch(spec, frames: torch.Tensor):
         words.data_ptr(), bits.data_ptr(), scratch.data_ptr(), dev.index,
         torch.cuda.current_stream(dev).cuda_stream)
     _build.check(rc, "pack")
-    encode_batch.launches += 1
+    _build.count_launch(encode_batch)
     return words, bits, scratch[-F:]
 
 
@@ -449,7 +449,7 @@ def encode_batch_tiled(spec, frames: torch.Tensor,
         scratch.data_ptr(), dev.index,
         torch.cuda.current_stream(dev).cuda_stream)
     _build.check(rc, "tiled pack")
-    encode_batch_tiled.launches += 1
+    _build.count_launch(encode_batch_tiled)
     return words, bits, maxw
 
 

@@ -235,7 +235,7 @@ def decode_batch(spec, words: torch.Tensor, widths: torch.Tensor,
         int(out_dtype == torch.uint16), out.data_ptr(), tile_start.data_ptr(),
         dev.index, torch.cuda.current_stream(dev).cuda_stream)
     _build.check(rc, "unpack")
-    decode_batch.launches += 1
+    _build.count_launch(decode_batch)
     return out
 
 
@@ -277,7 +277,7 @@ def decode_batch_tiled(spec, words: torch.Tensor, widths: torch.Tensor,
         int(out_dtype == torch.uint16), scratch.data_ptr(), out.data_ptr(),
         dev.index, torch.cuda.current_stream(dev).cuda_stream)
     _build.check(rc, "tiled unpack")
-    decode_batch_tiled.launches += 1
+    _build.count_launch(decode_batch_tiled)
     return out
 
 

@@ -38,6 +38,7 @@ from torch.profiler import record_function
 
 from .. import api as _api
 from .. import native
+from .._fallback import warn_once
 from ..format.header import TrpxMeta, emit_header
 from ..format.pycodec import TrpxArchive
 from ..format.spec import DEFAULT_BLOCK, frame_nbytes
@@ -497,8 +498,10 @@ def _native_chunks(archive: TrpxArchive, spec: FrameSpec, C: int,
         ends_all = np.concatenate([fidx[1:], [meta.memory_size]])
         try:
             validate_tables(spec, meta, wtab, fidx, ends_all)
-        except ValueError:
+        except ValueError as e:
             # stale or crafted tables: distrust both and walk
+            warn_once("stream.sidecar_tables", e,
+                      "revalidating chunked header walk")
             have_tables = False
     if not have_tables:
         acc_w = np.empty((F, spec.nb), np.uint8)
