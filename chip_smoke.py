@@ -152,7 +152,33 @@ the tiled unpack. Phases, one line each (more for phases 5 and 6):
    ``tests/test_torch_cuda.py::test_unpack_kernels_on_hostile_tables``
    and (b)'s drill at ``CHECKED_RACE_CALLS`` calls a thread; the child
    must exit 0. The launches of (a), (b) and (d), which are not traffic,
-   are checked but not counted; those of (c) join the kernels line.
+   are checked but not counted; those of (c) join the kernels line;
+12. the sharded path (``trpx_tpu_torch.parallel.ShardedCodec``), each drive
+   with the launch counters set to 0 just before it and checked against
+   the routes of its shards just after: (a) on any number of cards,
+   ``ShardedCodec(spec, [cuda:0] * k)`` for k = 1, 2 and 4 over 256 x
+   512x512 u16 and 32 x 2048x2048 u32 (drawn as in phase 5): ``encode``
+   equal to the native codec's bytes, ``decode`` lossless; then, warm, the
+   host ms of the dispatch loop (``_dispatch_local``), of the collect and
+   of whole ``encode`` and ``decode`` calls, medians of ``SHARD_REPS``;
+   and the overlap check: ``_dispatch_local`` of the 2048x2048 batch over
+   two shards, queued behind a spin kernel of ``OVERLAP_SPIN_CYCLES``,
+   returns while ``cuda:0``'s current stream still has work queued (no
+   dispatch waited for its kernel); (b) on two or more
+   cards (one line saying so, and no check, on one): ``ShardedCodec`` over
+   every card, bytes and pixels as in (a); ``dryrun_multichip`` with one
+   rank per card; two gloo workers with rank r on ``cuda:r`` writing
+   phase 8's shared files (``--worker cards``), equal to the native
+   codec's bytes; ``tools.scaling`` over 1, 2, 4, ... cards (fps(N) and
+   the scaling efficiency); and, in a child ``pytest``, the card tests
+   that need two cards (``test_launchers_leave_the_current_device``,
+   ``test_sharded_codec_on_every_card``), which must pass. The launches of
+   (a)'s first drives and of (b)'s codec, dry run and workers join the
+   kernels line; those of the timing loops and of the scaling tool do
+   not.
+
+``python3 chip_smoke.py --sharded [a|b]`` builds the kernels and runs
+phase 12 alone (or only its part a or b).
 
 It then prints the card line, a JSON line of per-kernel results and, last,
 ``{"ok": true, "device": {...}}``. Any failure exits non-zero before that
@@ -166,6 +192,7 @@ from __future__ import annotations
 import json
 import os
 import shutil
+import statistics
 import subprocess
 import sys
 import tempfile
@@ -228,6 +255,16 @@ CHECKED_TIMEOUT_S = 600
 #: chunks of MOVIE_CHUNK frames
 MOVIE_FRAMES = 10_000
 MOVIE_CHUNK = 256
+#: phase 12(a): shard counts of ``ShardedCodec(spec, [cuda:0] * k)``, the
+#: batches (frames, side, dtype) drawn as in phase 5, and the timed
+#: repetitions of each warm step
+SHARDS = (1, 2, 4)
+SHARD_BATCHES = ((256, 512, np.uint16), (32, 2048, np.uint32))
+SHARD_REPS = 3
+#: cycles of the spin kernel queued before each dispatch of phase 12(a)'s
+#: overlap check: ~0.54 s at the H100's 1.98 GHz, far longer than the
+#: dispatch loop's host work
+OVERLAP_SPIN_CYCLES = 1 << 30
 #: device memory rate of an H100 SXM (NVIDIA's data sheet), for the bounds
 HBM_BYTES_PER_S = 3.35e12
 DTYPES = (np.uint8, np.int8, np.uint16, np.int16, np.uint32, np.int32)
@@ -816,13 +853,16 @@ def _parallel_frames():
                     hot_value=HOT_U32))
 
 
-def _worker(mode: str, rank: int, world: int, port: int, workdir: str) -> int:
-    """One rank of phase 8, on ``cuda:0`` in a gloo group at
-    localhost:`port`. ``shards``: drives (a) and (b), then the stream
-    drill's first run, which rank 1 leaves with ``os._exit(3)`` after
-    chunk 2's checkpoint (rank 0 exits too). ``resume``: the drill resumed
-    and finalized. Prints, as its last line, each drive's launch counters
-    (set to 0 just before it) and wall seconds."""
+def _worker(mode: str, rank: int, world: int, port: int, workdir: str,
+            device: str | None = None) -> int:
+    """One rank of phase 8, on every card (``cuda:0`` on one) or on
+    `device`, in a gloo group at localhost:`port`. ``shards``: drives (a)
+    and (b), then the stream drill's first run, which rank 1 leaves with
+    ``os._exit(3)`` after chunk 2's checkpoint (rank 0 exits too).
+    ``resume``: the drill resumed and finalized. ``cards`` (phase 12(b),
+    one card a rank): drives (a) and (b) only. Prints, as its last line,
+    each drive's launch counters (set to 0 just before it) and wall
+    seconds."""
     os.environ.update(MASTER_ADDR="localhost", MASTER_PORT=str(port),
                       RANK=str(rank), WORLD_SIZE=str(world))
     import torch.distributed as dist
@@ -854,7 +894,8 @@ def _worker(mode: str, rank: int, world: int, port: int, workdir: str) -> int:
         F = frames.shape[0]
         lo, hi = rank * F // world, (rank + 1) * F // world
         spec = FrameSpec.for_dtype(side * side, frames.dtype)
-        codec = ShardedCodec(spec)           # default devices: the card
+        # default devices: the card(s)
+        codec = ShardedCodec(spec, None if device is None else [device])
         out = work / f"{name}.trpx"
 
         def run():
@@ -865,9 +906,13 @@ def _worker(mode: str, rank: int, world: int, port: int, workdir: str) -> int:
                                    dtype=frames.dtype)
         drive(name, run)
 
-    if mode == "shards":
+    if mode in ("shards", "cards"):
         shard_drive("a", main_fr, SIDE)
         shard_drive("b", big_fr, BIG[0][0])
+    if mode == "cards":
+        print(json.dumps(report), flush=True)
+        dist.destroy_process_group()
+        return 0
     codec = ShardedCodec(FrameSpec.for_dtype(SIDE * SIDE, np.uint16))
     F, C = main_fr.shape[0], PAR_CHUNK
 
@@ -901,17 +946,20 @@ def _free_port() -> int:
         return s.getsockname()[1]
 
 
-def _launch_workers(mode: str, workdir: Path, want_rcs) -> tuple:
+def _launch_workers(mode: str, workdir: Path, want_rcs,
+                    devices=None) -> tuple:
     """Phase 8's `WORLD` workers of `mode` on a fresh port, with this
-    process's environment (its cleaned ``CXX`` included); raises unless
-    their exit codes are `want_rcs`. Returns (each rank's report, wall
-    seconds of the launch)."""
+    process's environment (its cleaned ``CXX`` included), rank r on
+    ``devices[r]`` if given; raises unless their exit codes are
+    `want_rcs`. Returns (each rank's report, wall seconds of the
+    launch)."""
     script = Path(__file__).resolve()
     port = _free_port()
     t0 = time.perf_counter()
     procs = [subprocess.Popen(
         [sys.executable, str(script), "--worker", mode, str(r), str(WORLD),
-         str(port), str(workdir)],
+         str(port), str(workdir)] + ([] if devices is None
+                                     else [str(devices[r])]),
         cwd=script.parent, env=dict(os.environ), stdout=subprocess.PIPE,
         stderr=subprocess.PIPE, text=True) for r in range(WORLD)]
     try:
@@ -2007,6 +2055,292 @@ def _movie_phase(dev, card: str, workdir: Path) -> dict:
     return total
 
 
+def _overlap_check(codec, frames: np.ndarray, dev) -> list:
+    """Phase 12(a)'s overlap check: [(whether `dev`'s current stream
+    still had work queued right after ``codec._dispatch_local(frames)``
+    returned, the host ms of that dispatch)] for ``SHARD_REPS`` calls,
+    each queued behind a spin kernel of ``OVERLAP_SPIN_CYCLES``. A
+    dispatch that waits for its kernel, which runs after the spin,
+    returns with the stream idle; one that only queues its work returns
+    while the spin still runs."""
+    out = []
+    for _ in range(SHARD_REPS):
+        torch.cuda.synchronize(dev)
+        with torch.cuda.device(dev):
+            torch.cuda._sleep(OVERLAP_SPIN_CYCLES)
+        t0 = time.perf_counter()
+        flights = codec._dispatch_local(frames)
+        t = (time.perf_counter() - t0) * 1e3
+        out.append((not torch.cuda.current_stream(dev).query(), t))
+        codec._collect_local(flights)
+    return out
+
+
+def _shard_routes(spec, F: int, k: int) -> set:
+    """The kernels that an encode and a decode of `F` frames over `k`
+    shards take."""
+    from trpx_tpu_torch.parallel.codec import _split
+
+    return {r for lo, hi in _split(F, k) for r in _route(spec, hi - lo)}
+
+
+def _sharded_phase(dev, card: str) -> tuple:
+    """Phase 12(a) (see the module docstring). Returns the launch counts
+    of each batch's first encode and decode at each k, and what failed in
+    the overlap check (None if it passed), which the caller raises after
+    12(b); raises at once on a wrong byte, pixel or route."""
+    from trpx_tpu_torch.native import codec as ncodec
+    from trpx_tpu_torch.ops import FrameSpec
+    from trpx_tpu_torch.ops.cuda_unpack import decoded_dtype
+    from trpx_tpu_torch.parallel import ShardedCodec
+
+    total = dict.fromkeys(_counters(), 0)
+    rng = np.random.default_rng(SEED + 12)
+    queued = None
+    for F, side, dt in SHARD_BATCHES:
+        fr = _frames(rng, F, side * side, dt,
+                     hot_value=HOT_U32 if dt == np.uint32 else None)
+        spec = FrameSpec.for_dtype(side * side, dt)
+        name = f"{F}x{side}x{side} {np.dtype(dt).name}"
+        want = ncodec.encode(fr, dimensions=(side, side)).to_bytes()
+        touch = []
+        for _ in range(SHARD_REPS):
+            t0 = time.perf_counter()
+            torch.empty((F, side * side),
+                        dtype=decoded_dtype(spec)).fill_(0)
+            touch.append(time.perf_counter() - t0)
+        print(f"phase 12(a) {name}: the first touch of a fresh pageable "
+              f"array of its size (what a decode hands back) takes "
+              f"{statistics.median(touch) * 1e3:.1f} ms, median of "
+              f"{SHARD_REPS}", flush=True)
+        for k in SHARDS:
+            codec = ShardedCodec(spec, [dev] * k)
+            _zero_counts()
+            t0 = time.perf_counter()
+            arch = codec.encode(fr, (side, side))
+            t_enc0 = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            back = codec.decode(arch, dt)
+            t_dec0 = time.perf_counter() - t0
+            got = _read_counts()
+            _expect_route(f"phase 12(a) {name} over {k}", got,
+                          _shard_routes(spec, F, k))
+            for kk, v in got.items():
+                total[kk] += v
+            if arch.to_bytes() != want:
+                raise AssertionError(f"phase 12(a) {name} over {k}: bytes "
+                                     f"differ from the native codec's")
+            if not np.array_equal(back, fr):
+                raise AssertionError(f"phase 12(a) {name} over {k}: decode "
+                                     f"lost pixels")
+            del back
+            ts = {"dispatch": [], "collect": [], "encode": [], "decode": []}
+            for _ in range(SHARD_REPS):
+                torch.cuda.synchronize(dev)
+                t0 = time.perf_counter()
+                flights = codec._dispatch_local(fr)
+                t1 = time.perf_counter()
+                codec._collect_local(flights)
+                ts["collect"].append(time.perf_counter() - t1)
+                ts["dispatch"].append(t1 - t0)
+                del flights
+                t0 = time.perf_counter()
+                codec.encode(fr, (side, side))
+                ts["encode"].append(time.perf_counter() - t0)
+                t0 = time.perf_counter()
+                codec.decode(arch, dt)
+                ts["decode"].append(time.perf_counter() - t0)
+            busy = None
+            if side == SHARD_BATCHES[-1][1] and k == 2:
+                queued = busy = _overlap_check(codec, fr, dev)
+            print(f"phase 12(a) {name} over {k} shard(s) of {dev} ({card}): "
+                  f"bytes == native codec, lossless, launches {got}; first "
+                  f"encode {t_enc0 * 1e3:.1f} ms, decode {t_dec0 * 1e3:.1f} "
+                  f"ms; host ms, median of {SHARD_REPS} warm: " + ", ".join(
+                      f"{s} {statistics.median(v) * 1e3:.1f}"
+                      for s, v in ts.items())
+                  + (f"; work queued after the dispatch behind a spin "
+                     f"{[b for b, _ in busy]}, dispatch ms "
+                     f"{[round(t, 1) for _, t in busy]}" if busy else ""),
+                  flush=True)
+            del codec, arch
+    F, side, _ = SHARD_BATCHES[-1]
+    if not queued or not all(b for b, _ in queued):
+        failed = (f"phase 12(a) overlap check: after the dispatch of {F}x"
+                  f"{side}x{side} over 2 shards the stream had finished "
+                  f"({queued}): a dispatch waited for its kernel")
+        print(failed, flush=True)
+        return total, failed
+    print(f"phase 12(a) overlap check passed: {dev}'s current stream had "
+          f"work queued right after each _dispatch_local of {F}x{side}x"
+          f"{side} over 2 shards", flush=True)
+    return total, None
+
+
+def _cards_phase(card: str, workdir: Path) -> dict:
+    """Phase 12(b) (see the module docstring). Returns the launch counts
+    of its codec, dry run and worker drives."""
+    from trpx_tpu_torch.graft_entry import dryrun_multichip
+    from trpx_tpu_torch.native import codec as ncodec
+    from trpx_tpu_torch.ops import FrameSpec
+    from trpx_tpu_torch.parallel import ShardedCodec, default_devices
+    from trpx_tpu_torch.tools import scaling
+
+    count = torch.cuda.device_count()
+    if count < 2:
+        print(f"phase 12(b) needs two or more cards; this machine has "
+              f"{count}: no check run", flush=True)
+        return {}
+    total = dict.fromkeys(_counters(), 0)
+    devices = default_devices()
+    rng = np.random.default_rng(SEED + 13)
+    msg = []
+    for F, side, dt in SHARD_BATCHES:
+        fr = _frames(rng, F, side * side, dt,
+                     hot_value=HOT_U32 if dt == np.uint32 else None)
+        spec = FrameSpec.for_dtype(side * side, dt)
+        name = f"{F}x{side}x{side} {np.dtype(dt).name}"
+        codec = ShardedCodec(spec, devices)
+        _zero_counts()
+        t0 = time.perf_counter()
+        arch = codec.encode(fr, (side, side))
+        t_enc = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        back = codec.decode(arch, dt)
+        t_dec = time.perf_counter() - t0
+        got = _read_counts()
+        _expect_route(f"phase 12(b) {name} over {count} cards", got,
+                      _shard_routes(spec, F, count))
+        for k, v in got.items():
+            total[k] += v
+        if arch.to_bytes() != ncodec.encode(
+                fr, dimensions=(side, side)).to_bytes():
+            raise AssertionError(f"phase 12(b) {name} over {count} cards: "
+                                 f"bytes differ from the native codec's")
+        if not np.array_equal(back, fr):
+            raise AssertionError(f"phase 12(b) {name} over {count} cards: "
+                                 f"decode lost pixels")
+        # warm calls: a timing loop, not counted
+        warm = {"encode": [], "decode": []}
+        for _ in range(SHARD_REPS):
+            t0 = time.perf_counter()
+            codec.encode(fr, (side, side))
+            warm["encode"].append(time.perf_counter() - t0)
+            t0 = time.perf_counter()
+            codec.decode(arch, dt)
+            warm["decode"].append(time.perf_counter() - t0)
+        msg.append(f"{name} first encode {t_enc * 1e3:.1f} ms, decode "
+                   f"{t_dec * 1e3:.1f} ms; median of {SHARD_REPS} warm " +
+                   ", ".join(f"{k} {statistics.median(v) * 1e3:.1f} ms"
+                             for k, v in warm.items()))
+        del fr, arch, back, codec
+    print(f"phase 12(b) ShardedCodec over {count} cards ({card}): bytes == "
+          f"native codec, lossless: " + "; ".join(msg), flush=True)
+    t0 = time.perf_counter()
+    ranks = dryrun_multichip(count)
+    wall = time.perf_counter() - t0
+    for r in ranks:
+        _expect_route(f"phase 12(b) dryrun rank {r['rank']}", r["launches"],
+                      {"pack", "pack_tiled", "unpack_tiled"})
+        for k, v in r["launches"].items():
+            total[k] += v
+    print(f"phase 12(b) dryrun_multichip({count}), one rank a card, passed "
+          f"in {wall:.1f} s", flush=True)
+    # phase 8's shared files, rank r on cuda:r
+    main_fr, big_fr = _parallel_frames()
+    reports, wall = _launch_workers(
+        "cards", workdir, (0,) * WORLD,
+        [torch.device("cuda", r) for r in range(WORLD)])
+    files = {"a": (main_fr, SIDE), "b": (big_fr, BIG[0][0])}
+    for k, (fr, s) in files.items():
+        spec = FrameSpec.for_dtype(s * s, fr.dtype)
+        for r, rep in enumerate(reports):
+            _expect_route(f"phase 12(b) worker {k} rank {r}",
+                          rep[k]["launches"],
+                          {_route(spec, len(fr) // WORLD)[0]})
+            for kk, v in rep[k]["launches"].items():
+                total[kk] += v
+        if (workdir / f"{k}.trpx").read_bytes() != ncodec.encode(
+                fr, dimensions=(s, s)).to_bytes():
+            raise AssertionError(f"phase 12(b) workers ({k}): the shared "
+                                 f"file differs from the native codec's")
+    print(f"phase 12(b) {WORLD} gloo workers, rank r on cuda:r: shared "
+          f"files of {main_fr.shape[0]}x{SIDE}x{SIDE} u16 and "
+          f"{big_fr.shape[0]}x{BIG[0][0]}x{BIG[0][0]} u32 == native codec; "
+          f"ms per rank " + "; ".join(
+              k + " " + "/".join(f"{rep[k]['seconds'] * 1e3:.1f}"
+                                 for rep in reports) for k in files)
+          + f"; launch {wall:.1f} s wall", flush=True)
+    # the scaling tool: a timing loop, checked but not counted
+    _zero_counts()
+    res = scaling.run(devices)
+    _expect_route("phase 12(b) scaling", _read_counts(), {"pack"})
+    if res["scaling_efficiency"] is None:
+        raise AssertionError(f"phase 12(b) scaling: no efficiency on "
+                             f"{count} cards: {res}")
+    print(f"phase 12(b) scaling ({card}; {count} cards): "
+          f"{json.dumps(res)}", flush=True)
+    # the card tests that need two cards, in a child pytest (without the
+    # suite's conftest, which imports jax)
+    tests = [f"tests/test_torch_cuda.py::{t}" for t in (
+        "test_launchers_leave_the_current_device",
+        "test_sharded_codec_on_every_card")]
+    root = Path(__file__).resolve().parent
+    r = subprocess.run(
+        [sys.executable, "-m", "pytest", "--noconftest", "-q",
+         "-p", "no:cacheprovider", *tests], cwd=root, env=dict(os.environ),
+        capture_output=True, text=True, timeout=600)
+    tail = r.stdout.strip().splitlines()[-1] if r.stdout.strip() else ""
+    if r.returncode or f"{len(tests)} passed" not in tail:
+        raise AssertionError(f"phase 12(b) card tests: rc {r.returncode}\n"
+                             f"{r.stdout[-4000:]}\n{r.stderr[-2000:]}")
+    print(f"phase 12(b) card tests on {count} cards: {tail}", flush=True)
+    return total
+
+
+def _sharded_only(parts: str = "ab") -> int:
+    """``chip_smoke.py --sharded [a|b]``: the card line, the kernels'
+    build and phase 12 alone (12(a) and 12(b), or the one named); its
+    last line is a JSON object of the phase's result, not the smoke's."""
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is false", file=sys.stderr)
+        return 1
+    cxx = os.environ.get("CXX")
+    if cxx and not _builds_openmp(cxx):
+        del os.environ["CXX"]
+    from trpx_tpu_torch import _build, native
+
+    if not native.available():
+        raise RuntimeError("the native host codec did not build")
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        check=True, capture_output=True, text=True).stdout.strip()
+    # nvidia-smi prints a line a card: name the first and the count
+    label = f"{card.splitlines()[0]} x {torch.cuda.device_count()}"
+    t0 = time.perf_counter()
+    _build.build()
+    _build.load()
+    print(f"phase 12 setup ({label}): build {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    t0 = time.perf_counter()
+    launches, failed = dict.fromkeys(_counters(), 0), None
+    if "a" in parts:
+        launches, failed = _sharded_phase(torch.device("cuda:0"), label)
+    work = Path(__file__).resolve().parent / "trpx_tpu_torch" / "_build"
+    work.mkdir(exist_ok=True)
+    if "b" in parts:
+        with tempfile.TemporaryDirectory(dir=work) as d:
+            for k, v in _cards_phase(label, Path(d)).items():
+                launches[k] += v
+    if failed:
+        raise AssertionError(failed)
+    print(f"phase 12 {time.perf_counter() - t0:.1f} s", flush=True)
+    print(card)
+    print(json.dumps({"phase12": "ok", "launches": launches,
+                      "cards": torch.cuda.device_count()}))
+    return 0
+
+
 def main() -> int:
     t_start = time.perf_counter()
     # phase 1: the card
@@ -2413,6 +2747,19 @@ def main() -> int:
         checked_phase(card, outcomes, Path(d), checked["s"])
     print(f"phase 11 {time.perf_counter() - t11:.1f} s", flush=True)
 
+    # phase 12: the sharded path over k shards of the card, then over every
+    # card when there are two or more
+    t12 = time.perf_counter()
+    got, failed = _sharded_phase(dev, card)
+    with tempfile.TemporaryDirectory(dir=work) as d:
+        for k, v in _cards_phase(card, Path(d)).items():
+            got[k] += v
+    if failed:
+        raise AssertionError(failed)
+    for k, v in got.items():
+        launches[k] += v
+    print(f"phase 12 {time.perf_counter() - t12:.1f} s", flush=True)
+
     sources = {"pack": ("pack.cu", "trpx_tpu/ops/pallas_pack.py:712"),
                "unpack": ("unpack.cu", "trpx_tpu/ops/pallas_unpack.py:626"),
                "pack_tiled": ("pack_tiled.cu",
@@ -2440,9 +2787,12 @@ def main() -> int:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--worker"]:
         a = sys.argv[2:]
-        sys.exit(_worker(a[0], int(a[1]), int(a[2]), int(a[3]), a[4]))
+        sys.exit(_worker(a[0], int(a[1]), int(a[2]), int(a[3]), a[4],
+                         *a[5:6]))
     if sys.argv[1:2] == ["--checked"]:
         sys.exit(_checked_child(sys.argv[2], sys.argv[3]))
     if sys.argv[1:2] == ["--checked-selftest"]:
         sys.exit(_checked_selftest())
+    if sys.argv[1:2] == ["--sharded"]:
+        sys.exit(_sharded_only(*sys.argv[2:3]))
     sys.exit(main())

@@ -392,7 +392,7 @@ def test_stream_staging_reuse_under_load(cuda, tmp_path):
     enc = StreamingEncoder(p, nvalues=512 * 512, dtype=np.uint16)
     for k in range(6):
         enc.add_frames(fr[k * 16 : (k + 1) * 16])
-    assert enc._staging[0].is_pinned() and enc._staging[1].is_pinned()
+    assert all(enc._staging._buf[k].is_pinned() for k in (0, 1))
     enc.finalize(verify=True)
     assert p.read_bytes() == ncodec.encode(fr).to_bytes()
 
@@ -744,3 +744,94 @@ def test_launchers_leave_the_current_device(cuda, tmp_path):
     enc = StreamingEncoder(tmp_path / "s.trpx", nvalues=n, dtype=np.uint16)
     assert enc._stream.device == torch.device("cuda", cur)
     assert torch.empty(1, device="cuda").device == torch.device("cuda", cur)
+
+
+# ------------------------------------------------------ the sharded path ---
+
+
+def _big_u32(F, seed):
+    """F 2048x2048 u32 frames, Poisson(3) with 200 hot pixels a frame."""
+    rng = np.random.default_rng(seed)
+    fr = rng.poisson(3.0, (F, 2048 * 2048)).astype(np.uint32)
+    fr[np.repeat(np.arange(F), 200), rng.integers(0, fr.shape[1], F * 200)] = \
+        2_000_000_000
+    return fr
+
+
+def test_sharded_dispatch_leaves_work_queued(cuda):
+    """``ShardedCodec._dispatch_local`` of 32 x 2048x2048 u32 over two
+    shards of ``cuda:0`` returns while the card still works: the uploads
+    run on a side stream and the tables come back into pinned memory, so
+    no warm dispatch waits for its kernel. Its staging is pinned, and
+    the collected archive is the native codec's bytes, from a cold codec
+    and from a warm one."""
+    from trpx_tpu_torch.ops import coding
+    from trpx_tpu_torch.parallel import ShardedCodec
+
+    dev = torch.device("cuda", 0)
+    fr = _big_u32(32, 12)
+    spec = FrameSpec.for_dtype(fr.shape[1], np.uint32)
+    codec = ShardedCodec(spec, [dev, dev])
+    want = ncodec.encode(fr, dimensions=(2048, 2048)).to_bytes()
+    for warm in (False, True):
+        torch.cuda.synchronize(dev)
+        if warm:
+            # the kernels queue behind ~0.5 s of spin: a dispatch that
+            # waited for its kernel would return with the stream idle (a
+            # cold one may: allocating device or pinned memory can
+            # synchronize the card)
+            torch.cuda._sleep(1 << 30)
+        flights = codec._dispatch_local(fr)
+        if warm:
+            assert not torch.cuda.current_stream(dev).query()
+        assert [p.pin for _, _, p in flights] == [True, True]
+        words, bits, maxw = codec._collect_local(flights)
+        arch = coding.assemble_archive(spec, words, bits, maxw, (2048, 2048))
+        assert arch.to_bytes() == want
+    assert all(t.is_pinned() for t in codec._staging._buf.values())
+
+
+def test_sharded_staging_is_bounded_on_card(cuda, monkeypatch):
+    """With bounce buffers of a few frames, a reused two-shard codec of
+    ``cuda:0`` encodes 13 x 512x512 u16 to the native codec's bytes and
+    decodes them exactly into pageable memory, twice with other data;
+    every bounce buffer is pinned and within ``BOUNCE_BYTES``."""
+    from trpx_tpu_torch.ops import staging
+    from trpx_tpu_torch.parallel import ShardedCodec
+
+    monkeypatch.setattr(staging, "BOUNCE_BYTES", 3 * 512 * 512 * 2)
+    dev = torch.device("cuda", 0)
+    codec = ShardedCodec(FrameSpec.for_dtype(512 * 512, np.uint16),
+                         [dev, dev])
+    for seed, F in ((15, 13), (16, 9)):
+        fr = _frames(np.uint16, 512 * 512, seed, F=F)
+        arch = codec.encode(fr, (512, 512))
+        assert arch.to_bytes() == ncodec.encode(
+            fr, dimensions=(512, 512)).to_bytes()
+        back = codec.decode(arch, np.uint16)
+        np.testing.assert_array_equal(back, fr)
+        assert not torch.from_numpy(back).is_pinned()
+    for t in codec._staging._buf.values():
+        assert t.is_pinned()
+        assert t.numel() * t.element_size() <= staging.BOUNCE_BYTES
+
+
+def test_sharded_codec_on_every_card(cuda):
+    """``ShardedCodec`` over every card: bytes equal the native codec's,
+    pixels exact, and the calling thread stays on its current device.
+    Needs two cards."""
+    from trpx_tpu_torch.parallel import ShardedCodec, default_devices
+
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA cards")
+    devices = default_devices()
+    cur = torch.cuda.current_device()
+    for fr, side in ((_frames(np.uint16, 512 * 512, 13, F=64), 512),
+                     (_big_u32(4 * len(devices), 14), 2048)):
+        spec = FrameSpec.for_dtype(fr.shape[1], fr.dtype)
+        codec = ShardedCodec(spec, devices)
+        arch = codec.encode(fr, (side, side))
+        assert arch.to_bytes() == ncodec.encode(
+            fr, dimensions=(side, side)).to_bytes()
+        np.testing.assert_array_equal(codec.decode(arch, fr.dtype), fr)
+        assert torch.cuda.current_device() == cur

@@ -300,3 +300,205 @@ def test_init_from_env_without_variables(monkeypatch):
     for k in ("MASTER_ADDR", "MASTER_PORT", "RANK", "WORLD_SIZE"):
         monkeypatch.delenv(k, raising=False)
     assert tdist.init_from_env() is False
+
+
+# ------------------------------------------- dispatch, collect, staging ---
+
+
+def _hot_stack(F, seed, shape=(5, 10)):
+    """(F, 5, 10) u16 frames (50 values: a partial last block of 12) with
+    hot pixels, so that stale staging rows would change the bytes."""
+    rng = np.random.default_rng(seed)
+    frames = rng.poisson(3.0, size=(F, *shape)).astype(np.uint16)
+    frames[rng.random(frames.shape) < 0.1] = 65535
+    return frames
+
+
+@pytest.mark.parametrize("k", [1, 3, 8])
+@pytest.mark.parametrize("direction", ["encode", "decode"])
+def test_every_shard_dispatched_before_any_collected(monkeypatch, direction,
+                                                     k):
+    """``ShardedCodec`` dispatches every shard before it waits for any:
+    an encode dispatch passes ``pin`` true exactly on CUDA devices (false
+    on these CPU ones) and its collect waits for each shard after the
+    last dispatch; a decode dispatch fetches nothing, and the shards'
+    pixels are fetched together after the last dispatch."""
+    from trpx_tpu_torch.ops import coding, staging
+
+    frames = _stack(13, 13).reshape(13, -1)
+    spec = FrameSpec.for_dtype(frames.shape[1], np.uint16)
+    codec = ShardedCodec(spec, ["cpu"] * k)
+    arch = codec.encode(frames)
+    calls = []
+    name = f"{direction}_dispatch"
+    dispatch = getattr(coding, name)
+
+    def recording(*a, **kw):
+        p = dispatch(*a, **kw)
+        dev = a[3] if direction == "decode" else a[1].device
+        calls.append(("dispatch", kw, dev.type))
+        return p
+
+    wait, fetch = coding.InFlight.wait, staging.fetch
+    monkeypatch.setattr(coding, name, recording)
+    monkeypatch.setattr(coding.InFlight, "wait",
+                        lambda p: (calls.append(("wait",)), wait(p)))
+    monkeypatch.setattr(staging, "fetch", lambda stage, parts, out: (
+        calls.append(("fetch", len(parts))), fetch(stage, parts, out)))
+    if direction == "encode":
+        assert codec.encode(frames).to_bytes() == arch.to_bytes()
+        assert calls == ([("dispatch", {"pin": False}, "cpu")] * k
+                         + [("wait",)] * k)
+    else:
+        np.testing.assert_array_equal(codec.decode(arch, np.uint16), frames)
+        assert calls == ([("dispatch", {"fetch": False}, "cpu")] * k
+                         + [("fetch", k)])
+
+
+@pytest.mark.parametrize("device", ["cpu", "cuda"])
+def test_staging_is_pinned_exactly_for_cuda(device):
+    """``ops.staging.upload`` asks for pinned bounce buffers exactly for a
+    CUDA device; on a machine without one the pinned request raises
+    (there is no fall back to pageable memory). A buffer is zeroed when
+    allocated, written in its first columns only, kept while requests fit
+    and grown when one does not."""
+    from trpx_tpu_torch.ops import staging
+
+    stage = staging.Staging()
+    src = np.arange(12, dtype=np.uint16).reshape(3, 4) + 1
+    pin = device == "cuda"
+    if pin and not torch.cuda.is_available():
+        with pytest.raises(RuntimeError):
+            stage.rows("x", src, 6, torch.uint16, pin=True)
+        return
+    x = staging.upload(stage, "x", src, 6, torch.uint16, torch.device(device))
+    assert x.device.type == device and x.shape == (3, 6)
+    np.testing.assert_array_equal(x[:, :4].cpu().numpy(), src)
+    assert not x[:, 4:].any()
+    assert stage._buf[("x", 0)].is_pinned() == pin
+    view = stage.rows("y", src, 6, torch.uint16, pin)
+    assert view.is_pinned() == pin and view.shape == (3, 6)
+    buf = view.untyped_storage().data_ptr()
+    again = stage.rows("y", src[:2] + 7, 6, torch.uint16, pin)
+    assert again.untyped_storage().data_ptr() == buf
+    np.testing.assert_array_equal(again[:, :4].numpy(), src[:2] + 7)
+    assert not again[:, 4:].any()
+    grown = stage.rows("y", np.ones((4, 4), np.uint16), 6, torch.uint16, pin)
+    assert grown.untyped_storage().data_ptr() != buf
+    assert grown.is_pinned() == pin
+    np.testing.assert_array_equal(grown.numpy(),
+                                  np.pad(np.ones((4, 4)), ((0, 0), (0, 2))))
+
+
+@pytest.mark.parametrize("rows", [1, 2, 5, 64])
+def test_upload_and_fetch_in_bounded_chunks(monkeypatch, rows):
+    """``upload`` and ``fetch`` move batches of any length through two
+    bounce buffers a slot of at most ``BOUNCE_BYTES``: the rows and the
+    zero tail arrive intact, a second, shorter batch of other data
+    leaves no stale row, and every part lands in its own rows of the
+    output."""
+    from trpx_tpu_torch.ops import staging
+
+    monkeypatch.setattr(staging, "BOUNCE_BYTES", rows * 6 * 2)
+    rng = np.random.default_rng(rows)
+    stage = staging.Staging()
+    cpu = torch.device("cpu")
+    for F in (13, 4):
+        src = rng.integers(1, 60000, (F, 4)).astype(np.uint16)
+        x = staging.upload(stage, "x", src, 6, torch.uint16, cpu)
+        np.testing.assert_array_equal(x.numpy(), np.pad(src, ((0, 0),
+                                                              (0, 2))))
+        parts = [(("p", i), lo, torch.from_numpy(src[lo:hi] + i))
+                 for i, (lo, hi) in enumerate(((0, F // 2), (F // 2, F)))]
+        out = torch.full((F, 4), 7, dtype=torch.uint16)
+        staging.fetch(stage, parts, out)
+        np.testing.assert_array_equal(
+            out.numpy(), np.concatenate([src[: F // 2], src[F // 2 :] + 1]))
+    assert {k[1] for k in stage._buf} == ({0, 1} if rows < 13 else {0})
+    assert all(b.numel() * 2 <= staging.BOUNCE_BYTES
+               for b in stage._buf.values())
+
+
+def _kind(slot):
+    """A staging slot's kind: the name in ((kind, shard), turn)."""
+    return slot[0][0]
+
+
+def _staging_buffers(codec, kind=None):
+    return {slot: t.untyped_storage().data_ptr()
+            for slot, t in codec._staging._buf.items()
+            if kind is None or _kind(slot) == kind}
+
+
+@pytest.mark.parametrize("bounce", [None, 250])
+@pytest.mark.parametrize("k", [1, 3, 8])
+def test_reused_codec_encodes_as_jax(monkeypatch, k, bounce):
+    """A codec reused across calls keeps its staging buffers: a second
+    call with fewer frames, other data and uneven shards still gives the
+    JAX package's archive (no stale rows, a zero tail past n = 50), also
+    when each shard goes up in chunks of two frames."""
+    from trpx_tpu_torch.ops import staging
+
+    if bounce:
+        monkeypatch.setattr(staging, "BOUNCE_BYTES", bounce)
+    first, second = _hot_stack(13, 1), _stack(11, 2, shape=(5, 10))
+    spec = FrameSpec.for_dtype(50, np.uint16)
+    codec = ShardedCodec(spec, ["cpu"] * k)
+    for frames in (first, second):
+        ours = codec.encode(frames.reshape(len(frames), -1), (10, 5))
+        assert ours.to_bytes() == jpar.encode_sharded(frames).to_bytes()
+        if frames is first:
+            kept = _staging_buffers(codec)
+    assert _staging_buffers(codec) == kept
+    assert {s[0][1] for s in kept if _kind(s) == "frames"} == set(
+        range(min(k, 13)))
+
+
+@pytest.mark.parametrize("bounce", [None, 250])
+@pytest.mark.parametrize("k", [1, 3, 8])
+def test_reused_codec_decodes_as_jax(monkeypatch, k, bounce):
+    """The same for ``decode``: a reused codec keeps its widths buffers,
+    no buffer outgrows its bound, and a second archive of fewer frames,
+    narrower streams and uneven shards decodes to the JAX package's
+    pixels, also in chunks of a few frames."""
+    from trpx_tpu_torch.ops import staging
+
+    if bounce:
+        monkeypatch.setattr(staging, "BOUNCE_BYTES", bounce)
+    first, second = _hot_stack(13, 3), _stack(11, 4, shape=(5, 10))
+    spec = FrameSpec.for_dtype(50, np.uint16)
+    codec = ShardedCodec(spec, ["cpu"] * k)
+    for frames in (first, second):
+        blob = jpar.encode_sharded(frames).to_bytes()
+        ours = codec.decode(trpx_tpu_torch.TrpxArchive.from_bytes(blob),
+                            np.uint16)
+        ref = jpar.decode_sharded(trpx_tpu.TrpxArchive.from_bytes(blob),
+                                  np.uint16)
+        np.testing.assert_array_equal(ours, np.asarray(ref))
+        np.testing.assert_array_equal(ours, frames.reshape(len(frames), -1))
+        if frames is first:
+            kept = _staging_buffers(codec, "widths")
+    assert _staging_buffers(codec, "widths") == kept
+    assert {s[0][1] for s in kept} == set(range(min(k, 13)))
+    for slot, t in codec._staging._buf.items():
+        row = {"words": 64 * 4, "widths": spec.nb, "pixels": 2 * 50}[
+            _kind(slot)]
+        assert t.numel() * t.element_size() <= max(staging.BOUNCE_BYTES, row)
+
+
+@pytest.mark.parametrize("k", [1, 3])
+def test_encode_local_words_outlive_the_next_call(k):
+    """The words of ``_encode_local`` (``encode_shards``,
+    ``recover_shard``) are the caller's: a first result stays intact
+    through a second call of narrower data, which a buffer kept on the
+    codec would take."""
+    codec = ShardedCodec(FrameSpec.for_dtype(50, np.uint16), ["cpu"] * k)
+    a, b = _hot_stack(9, 5).reshape(9, -1), _stack(9, 6, (5, 10)).reshape(
+        9, -1)
+    words, bits, _ = codec._encode_local(a)
+    keep = words.copy()
+    codec._encode_local(b)
+    np.testing.assert_array_equal(words, keep)
+    assert codec.encode(a, (10, 5)).to_bytes() == jpar.encode_sharded(
+        a.reshape(9, 5, 10)).to_bytes()
+    assert bits.shape == (9,)

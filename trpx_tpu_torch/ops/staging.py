@@ -1,0 +1,159 @@
+"""Host staging buffers for the copies between the host and a device.
+
+A copy between a CUDA device and *pageable* host memory blocks the host:
+CUDA stages it through a pinned buffer of its own, and a copy back
+returns only once it has landed, after every kernel queued before it. So
+the host side of a copy that must not wait goes through pinned memory,
+and these buffers are kept across calls rather than pinned anew for each.
+
+:class:`Staging` holds the buffers, one per slot; :func:`upload` and
+:func:`fetch` move a batch of rows to and from a device through two
+buffers a slot of at most :data:`BOUNCE_BYTES` each, so the pinned memory
+stays bounded whatever the batch, and the host's copy of one chunk runs
+while the card copies the other.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import math
+import warnings
+
+import numpy as np
+import torch
+
+#: bytes of each of the two bounce buffers of an upload or fetch slot
+BOUNCE_BYTES = 32 << 20
+
+
+class Staging:
+    """Host buffers kept across calls, one per slot (any hashable key).
+
+    A buffer is pinned exactly when the request says so (a CUDA copy will
+    read or write it); a failed pinned allocation raises, there is no
+    fall back to pageable memory. It is zeroed when allocated and grows
+    only when a request needs more than it holds. Before a buffer is
+    handed out again, the host waits for the device work that last used
+    it (:meth:`used`)."""
+
+    def __init__(self) -> None:
+        self._buf: dict = {}
+        self._used: dict = {}
+        self._side: dict = {}
+
+    def side(self, device: torch.device) -> torch.cuda.Stream:
+        """The CUDA stream of `device` that :func:`upload` copies on."""
+        if device not in self._side:
+            self._side[device] = torch.cuda.Stream(device)
+        return self._side[device]
+
+    def ready(self, slot) -> None:
+        """Wait for the device work recorded by :meth:`used` on `slot`."""
+        ev = self._used.pop(slot, None)
+        if ev is not None:
+            ev.synchronize()
+
+    def buffer(self, slot, numel: int, dtype: torch.dtype,
+               pin: bool) -> torch.Tensor:
+        """The first `numel` elements of slot's buffer, once the host may
+        write them."""
+        self.ready(slot)
+        buf = self._buf.get(slot)
+        if buf is None or buf.numel() < numel or buf.dtype != dtype:
+            buf = torch.zeros(numel, dtype=dtype, pin_memory=pin)
+            self._buf[slot] = buf
+        return buf[:numel]
+
+    def rows(self, slot, src: np.ndarray, cols: int, dtype: torch.dtype,
+             pin: bool) -> torch.Tensor:
+        """Copy the host rows `src` (F, c) into the first c columns of
+        slot's buffer viewed as (F, `cols`) and return that view. Columns
+        past c are never written: in a slot that only ever takes rows of c
+        values into `cols` columns they stay zero (the pad to the block
+        grid)."""
+        F, c = src.shape
+        view = self.buffer(slot, F * cols, dtype, pin).view(F, cols)
+        with warnings.catch_warnings():
+            # the rows are only read: a read-only input is fine
+            warnings.simplefilter("ignore", UserWarning)
+            src = torch.from_numpy(np.ascontiguousarray(src))
+        # torch's copy runs on all host threads, numpy's strided copy on
+        # one: 28-36 against 106-127 ms per 32 x 2048x2048 u32 chunk on
+        # the 8-core host of an H100 80GB HBM3 (PERF.md, section 6)
+        view[:, :c].copy_(src)
+        return view
+
+    def used(self, slot, stream) -> None:
+        """Mark slot's buffer as used by the work queued so far on the
+        CUDA `stream` (None: nothing to wait for)."""
+        if stream is not None:
+            ev = torch.cuda.Event()
+            ev.record(stream)
+            self._used[slot] = ev
+
+
+def _chunk_rows(cols: int, dtype: torch.dtype) -> int:
+    """Rows of `cols` values of `dtype` in one bounce buffer (at least 1)."""
+    return max(1, BOUNCE_BYTES // (cols * dtype.itemsize))
+
+
+def upload(staging: Staging, slot, src: np.ndarray, cols: int,
+           dtype: torch.dtype, device: torch.device) -> torch.Tensor:
+    """Copy the host rows `src` (F, c) into a new (F, `cols`) tensor on
+    `device`, zero past column c, through the bounce buffers ``(slot, 0)``
+    and ``(slot, 1)``, which the host fills in turn. For a CUDA device
+    they are pinned and the copies run on the device's side stream
+    (:meth:`Staging.side`), which its current stream then waits for: the
+    host waits only for an earlier upload from the same buffer, never for
+    a kernel. Returns without waiting for the last copy."""
+    F, _ = src.shape
+    pin = device.type == "cuda"
+    side = staging.side(device) if pin else None
+    R = _chunk_rows(cols, dtype)
+    with torch.cuda.stream(side) if pin else contextlib.nullcontext():
+        x = torch.empty((F, cols), dtype=dtype, device=device)
+        for j, a in enumerate(range(0, F, R)):
+            key = (slot, j % 2)
+            b = min(a + R, F)
+            x[a:b].copy_(staging.rows(key, src[a:b], cols, dtype, pin),
+                         non_blocking=True)
+            staging.used(key, side)
+    if pin:
+        stream = torch.cuda.current_stream(device)
+        stream.wait_stream(side)
+        x.record_stream(stream)
+    return x
+
+
+def fetch(staging: Staging, parts: list, out: torch.Tensor) -> None:
+    """Copy device tensors into rows of the host tensor `out`: `parts` is
+    [(slot, lo, t)], t (hi - lo, ...) on a device whose current stream
+    owns it. Each part passes in chunks through its two bounce buffers
+    ``(slot, 0)`` and ``(slot, 1)``, pinned for a CUDA device: the next
+    chunk of every part is started before the host copies the last ones
+    out, so the devices' copies run together and beside the host's.
+    Returns when every row has landed."""
+    plan = [(slot, lo, t, _chunk_rows(math.prod(t.shape[1:]), t.dtype))
+            for slot, lo, t in parts]
+    steps = max((-(-len(t) // R) for _, _, t, R in plan), default=0)
+    pending = []
+    for j in range(steps + 1):
+        started = []
+        for slot, lo, t, R in plan:
+            a, b = j * R, min((j + 1) * R, len(t))
+            if a >= b:
+                continue
+            key = (slot, j % 2)
+            pin = t.device.type == "cuda"
+            buf = staging.buffer(key, t[a:b].numel(), t.dtype, pin)
+            buf = buf.view(t[a:b].shape)
+            stream = torch.cuda.current_stream(t.device) if pin else None
+            with (torch.cuda.stream(stream) if pin
+                  else contextlib.nullcontext()):
+                buf.copy_(t[a:b], non_blocking=True)
+            staging.used(key, stream)
+            started.append((key, buf, lo + a, lo + b))
+        for key, buf, a, b in pending:
+            staging.ready(key)
+            out[a:b].copy_(buf)
+        pending = started

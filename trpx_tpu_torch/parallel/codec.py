@@ -6,9 +6,21 @@ the only state shared across frames is the running ``prolix_bits`` max, an
 associative reduction. So:
 
 * a process splits its frames contiguously over its local devices (a list
-  of torch devices; shards may be uneven) and dispatches every shard's
-  pack kernel on its device's current stream before it collects any, so
-  several local cards overlap;
+  of torch devices; shards may be uneven) and dispatches every shard
+  before it collects any. A shard goes to its device in chunks through
+  two bounded host buffers of its own (``ops.staging``: pinned for a CUDA
+  device, zeroed when allocated, so the columns past ``n`` are the pad,
+  and kept on the codec across calls), without blocking the host; it is
+  packed on the device's current stream, and its bit counts and widths
+  start back into pinned memory, so the host returns from a dispatch
+  while the device still works and stages the next shard meanwhile. The
+  collect waits for each shard's tables, then starts every shard's words
+  back into its rows of one pinned array, then waits for them all.
+  Decode stages each shard's words and widths alike, dispatches every
+  shard, and brings their pixels back together through bounded pinned
+  buffers into one pageable array for the caller. CPU devices run the
+  kernels' plain versions, which have finished when their dispatch
+  returns, through plain (unpinned) buffers;
 * across processes the only collective is the per-frame size table: a
   ``torch.distributed`` all-gather over **gloo** of host int64 tensors
   (the table is a host table anyway, and NCCL cannot put two ranks on one
@@ -33,9 +45,11 @@ import torch
 
 from .. import api as _api
 from ..format.pycodec import TrpxArchive
-from ..format.spec import DEFAULT_BLOCK
+from ..format.spec import DEFAULT_BLOCK, frame_nbytes
 from ..ops import coding
+from ..ops import staging
 from ..ops.coding import FrameSpec, walk_archive
+from ..ops.cuda_unpack import decoded_dtype
 
 
 def default_devices() -> list[torch.device]:
@@ -89,38 +103,63 @@ class ShardedCodec:
         if not self.devices or any(d is None for d in self.devices):
             raise ValueError("ShardedCodec needs one or more torch devices")
         self.group = group
+        self._staging = staging.Staging()
 
     @property
     def ndev(self) -> int:
         return len(self.devices)
 
-    def _encode_local(self, frames: np.ndarray):
-        """Pack this process's (F, n) frames, split over its devices ->
-        (words (F, W) uint32, bits (F,) int64, maxw (F,) int64). Only each
-        frame's first ``frame_nbytes(bits)`` bytes of words are defined."""
+    def _dispatch_local(self, frames: np.ndarray) -> list:
+        """Stage, upload and pack each shard of this process's (F, n)
+        frames on its device, and start its tables back, without waiting
+        for any device -> [(lo, hi, InFlight)] in frame order."""
         F, n = frames.shape
         if n != self.spec.n:
             raise ValueError(f"frames have {n} values, spec says {self.spec.n}")
+        want = self.spec.torch_dtype
+        if torch.from_numpy(np.empty(0, frames.dtype)).dtype != want:
+            raise TypeError(f"frames must be {want} for {self.spec}, got "
+                            f"{frames.dtype}")
         flights = []
-        for (lo, hi), dev in zip(_split(F, self.ndev), self.devices):
-            x = torch.from_numpy(coding._pad_batch(frames[lo:hi], self.spec))
+        for i, ((lo, hi), dev) in enumerate(zip(_split(F, self.ndev),
+                                                self.devices)):
+            x = staging.upload(self._staging, ("frames", i), frames[lo:hi],
+                               self.spec.n_padded, want, dev)
             flights.append((lo, hi, coding.encode_dispatch(
-                self.spec, x.to(dev, non_blocking=True))))
+                self.spec, x, pin=dev.type == "cuda")))
+        return flights
+
+    def _collect_local(self, flights: list):
+        """Gather :meth:`_dispatch_local`'s shards -> (words (F, W)
+        uint32, bits (F,) int64, maxw (F,) int64). Waits for every shard's
+        tables (each lands right after its kernel, while the other cards'
+        kernels run on), which give W, the words that hold some frame's
+        bytes; then starts every shard's words into its rows of one new
+        array (pinned if a device is a CUDA one), then waits for them all.
+        Only each frame's first ``frame_nbytes(bits)`` bytes of words are
+        defined."""
+        F = flights[-1][1] if flights else 0
         bits = np.zeros(F, np.int64)
         maxw = np.zeros(F, np.int64)
-        shards = []
         for lo, hi, p in flights:
-            w, b, m = coding.encode_collect(p)
-            bits[lo:hi], maxw[lo:hi] = b, m
-            shards.append((lo, hi, w))
-        W = max((w.shape[1] for _, _, w in shards), default=0)
-        if len(shards) == 1 and shards[0][2].shape[0] == F:
-            words = shards[0][2]
-        else:
-            words = np.zeros((F, W), np.uint32)
-            for lo, hi, w in shards:
-                words[lo:hi, : w.shape[1]] = w
-        return words, bits, maxw
+            p.wait()
+            bits[lo:hi], maxw[lo:hi] = (t.numpy() for t in p.host)
+        W = -(-frame_nbytes(int(bits.max())) // 4) if F else 0
+        words = torch.empty((F, W), dtype=torch.int32, pin_memory=any(
+            d.type == "cuda" for d in self.devices))
+        for lo, hi, p in flights:
+            with coding._on(p.stream):
+                words[lo:hi].copy_(p.out[:, :W], non_blocking=True)
+        for _, _, p in flights:
+            if p.stream is not None:
+                p.stream.synchronize()
+        return words.numpy().view(np.uint32), bits, maxw
+
+    def _encode_local(self, frames: np.ndarray):
+        """Pack this process's (F, n) frames, split over its devices ->
+        (words (F, W) uint32, bits (F,) int64, maxw (F,) int64): every
+        shard dispatched, then every shard collected."""
+        return self._collect_local(self._dispatch_local(np.asarray(frames)))
 
     def encode(
         self, frames: np.ndarray, dimensions: tuple[int, ...] = ()
@@ -195,21 +234,30 @@ class ShardedCodec:
         """Host header walk, then the unpack of each local device's frame
         shard -> (F, n) array of ``dtype``, narrowed as ``ops.decode``
         narrows (a stream wider than the target takes the host codec's
-        clamp, as there)."""
+        clamp, as there). Every shard's words and widths are staged,
+        uploaded and unpacked before any pixel is fetched; the pixels then
+        come back together (``ops.staging.fetch``) into one pageable
+        array."""
         dtype = np.dtype(dtype)
         meta = archive.meta
         if meta.prolix_bits > self.spec.max_width:
             return coding.decode(archive, dtype, device=self.devices[0])
         widths, words = walk_archive(archive, self.spec)
-        words = torch.from_numpy(words.view(np.int32))
-        widths = torch.from_numpy(widths.astype(np.uint8))
-        flights = [
-            coding.decode_dispatch(self.spec, words[lo:hi], widths[lo:hi],
-                                   dev)
-            for (lo, hi), dev in zip(_split(meta.number_of_frames, self.ndev),
-                                     self.devices)]
-        out = [coding.decode_collect(p, dtype) for p in flights]
-        return np.concatenate(out) if len(out) != 1 else out[0]
+        W = words.shape[1]
+        F = meta.number_of_frames
+        parts = []
+        for i, ((lo, hi), dev) in enumerate(zip(_split(F, self.ndev),
+                                                self.devices)):
+            wo = staging.upload(self._staging, ("words", i),
+                                words[lo:hi].view(np.int32), W, torch.int32,
+                                dev)
+            wd = staging.upload(self._staging, ("widths", i), widths[lo:hi],
+                                self.spec.nb, torch.uint8, dev)
+            p = coding.decode_dispatch(self.spec, wo, wd, dev, fetch=False)
+            parts.append((("pixels", i), lo, p.out))
+        host = torch.empty((F, self.spec.n), dtype=decoded_dtype(self.spec))
+        staging.fetch(self._staging, parts, host)
+        return coding.narrow_values(host.numpy(), dtype)
 
 
 def encode_sharded(

@@ -28,7 +28,6 @@ from __future__ import annotations
 
 import json
 import os
-import warnings
 from dataclasses import dataclass
 from pathlib import Path
 
@@ -53,6 +52,7 @@ from ..ops.coding import (
     validate_tables,
     walk_archive,
 )
+from ..ops.staging import Staging
 
 
 @dataclass
@@ -132,10 +132,8 @@ class StreamingEncoder:
                                  "backend='host'")
             if self.device.type == "cuda":
                 self._stream = torch.cuda.Stream(self.device)
-        #: two staging buffers (pinned on CUDA) and the event of the copy
-        #: to the device that last read each
-        self._staging: list[torch.Tensor | None] = [None, None]
-        self._read: list[torch.cuda.Event | None] = [None, None]
+        #: two staging buffers, turns 0 and 1 (pinned on CUDA)
+        self._staging = Staging()
         self._turn = 0
         self._pending = None
         if self.manifest_path.exists():
@@ -210,9 +208,7 @@ class StreamingEncoder:
         with _on(self._stream):
             with record_function("trpx.stream.h2d"):
                 x = staged.to(self.device, non_blocking=True)
-                if self._stream is not None:
-                    self._read[k] = torch.cuda.Event()
-                    self._read[k].record(self._stream)
+                self._staging.used(k, self._stream)
             out = encode_dispatch(self.spec, x, pin=self._stream is not None)
         prev, self._pending = self._pending, (out, F)
         if prev is not None:
@@ -223,24 +219,9 @@ class StreamingEncoder:
         device that last read that buffer has completed. Columns past
         ``nvalues`` are never written, so they stay zero: the pad."""
         k, self._turn = self._turn, self._turn ^ 1
-        if self._read[k] is not None:
-            self._read[k].synchronize()
-        F = frames.shape[0]
-        buf = self._staging[k]
-        if buf is None or buf.shape[0] < F:
-            buf = torch.zeros((F, self.spec.n_padded),
-                              dtype=self.spec.torch_dtype,
-                              pin_memory=self._stream is not None)
-            self._staging[k] = buf
-        with warnings.catch_warnings():
-            # the frames are only read: a read-only input is fine
-            warnings.simplefilter("ignore", UserWarning)
-            src = torch.from_numpy(np.ascontiguousarray(frames))
-        # torch's copy runs on all host threads, numpy's strided copy on
-        # one: 28-36 against 106-127 ms per 32 x 2048x2048 u32 chunk on
-        # the 8-core host of an H100 80GB HBM3 (PERF.md, section 6)
-        buf[:F, : self.nvalues].copy_(src)
-        return k, buf[:F]
+        return k, self._staging.rows(k, frames, self.spec.n_padded,
+                                     self.spec.torch_dtype,
+                                     pin=self._stream is not None)
 
     def _write_host_chunk(self, frames: np.ndarray) -> None:
         """host backend: native C++ encode of the chunk, one contiguous
