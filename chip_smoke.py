@@ -705,12 +705,12 @@ def _stream_phase(rng, dev, card: str, workdir: Path) -> dict:
 def _consume(chunks, like: np.ndarray) -> np.ndarray:
     """Copy ``iter_decode``'s chunks into one preallocated array, as
     ``decompress`` does, so each chunk's buffer is released in turn."""
-    from torch.profiler import record_function
+    from trpx_tpu_torch.runtime.metrics import span
 
     out = np.empty_like(like)
     lo = 0
     for chunk in chunks:
-        with record_function("trpx.consumer.copy"):
+        with span("trpx.consumer.copy"):
             hi = lo + chunk.shape[0]
             torch.from_numpy(out[lo:hi]).copy_(torch.from_numpy(chunk))
         lo = hi

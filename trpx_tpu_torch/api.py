@@ -18,6 +18,12 @@ kernels cannot hold (64-bit, or a stream wider than the target).
 
 There is no fallback from a device: a missing card or a failing kernel
 raises.
+
+Each call counts in ``calls.api.compress`` or ``calls.api.decompress``
+(``runtime.metrics``). The parse of bytes, a path or a file runs in the
+span ``trpx.api.parse``, and a decode of more than
+``_DEVICE_CHUNK_FRAMES`` frames copies its chunks into the output in
+``trpx.api.consume``; both count the host bytes they write and allocate.
 """
 
 from __future__ import annotations
@@ -29,11 +35,12 @@ import torch
 
 from . import native, ops
 from .format import pycodec
-from .format.header import TrpxMeta
+from .format.header import TrpxMeta, emit_header
 from .format.pycodec import TrpxArchive
 from .format.spec import DEFAULT_BLOCK
 from .io.trpx import read_trpx, subset_frames
 from .native import codec as ncodec
+from .runtime.metrics import count, span
 
 __all__ = ["compress", "decompress", "output_dtype"]
 
@@ -129,18 +136,37 @@ def _decode_ok(meta: TrpxMeta, dtype: np.dtype) -> bool:
 
 def _as_archive(archive) -> TrpxArchive:
     """An archive of this package from itself, ``.trpx`` bytes, a path (read
-    with any ``.idx`` sidecar) or a file object."""
+    with any ``.idx`` sidecar) or a file object. Other than an archive, in
+    the span ``trpx.api.parse``, which counts the ``.trpx`` bytes read or
+    copied, a sidecar's width table read, and the payload's copy."""
     if isinstance(archive, TrpxArchive):
         return archive
-    if isinstance(archive, (bytes, bytearray, memoryview)):
-        return TrpxArchive.from_bytes(bytes(archive))
-    if isinstance(archive, (str, os.PathLike)) or hasattr(archive, "read"):
-        return read_trpx(archive)
-    raise TypeError(
-        "expected a trpx_tpu_torch TrpxArchive, .trpx bytes, a path or a "
-        f"file object, got {type(archive).__module__}."
-        f"{type(archive).__name__} (an archive of another package crosses "
-        "as its to_bytes())")
+    is_path = isinstance(archive, (str, os.PathLike))
+    is_buffer = isinstance(archive, (bytes, bytearray, memoryview))
+    if not (is_path or is_buffer or hasattr(archive, "read")):
+        raise TypeError(
+            "expected a trpx_tpu_torch TrpxArchive, .trpx bytes, a path or "
+            f"a file object, got {type(archive).__module__}."
+            f"{type(archive).__name__} (an archive of another package "
+            "crosses as its to_bytes())")
+    with span("trpx.api.parse") as s:
+        arch = read_trpx(archive)
+        size = arch.meta.memory_size
+        if is_path:
+            read = os.path.getsize(archive)
+            table = getattr(arch, "width_table", None)
+            if table is not None:
+                # the sidecar's file and the copy its width table views
+                read += 2 * table.nbytes
+        elif is_buffer:
+            # bytes are parsed as they are; another buffer is copied first
+            read = (0 if isinstance(archive, bytes)
+                    else memoryview(archive).nbytes)
+        else:
+            read = len(emit_header(arch.meta)) + size
+        s.fresh(read + size)
+        s.host(read + size)
+    return arch
 
 
 def compress(
@@ -155,6 +181,7 @@ def compress(
     ``dimensions``: overrides the dims stored in the header.
     ``device``: see the module docstring.
     """
+    count("calls.api.compress")
     frames = np.asarray(frames)
     if frames.dtype.kind == "f":
         # reference CLI truncates float TIFFs through int64 (terse.cpp:120-123)
@@ -186,6 +213,7 @@ def decompress(
     subset (an int, slice or sequence of indices) at O(selected frames)
     cost. ``device``: see the module docstring.
     """
+    count("calls.api.decompress")
     archive = _as_archive(archive)
     if frames is not None:
         archive = subset_frames(archive, frames)
@@ -214,12 +242,16 @@ def decompress(
         # one preallocated output, by torch's copy on all host threads
         from .runtime import stream
 
-        out = np.empty((F, meta.number_of_values), dtype)
+        with span("trpx.api.consume") as s:
+            out = np.empty((F, meta.number_of_values), dtype)
+            s.fresh(out.nbytes)
         lo = 0
         for chunk in stream.iter_decode(archive, dtype, _DEVICE_CHUNK_FRAMES,
                                         device=dev):
-            hi = lo + chunk.shape[0]
-            torch.from_numpy(out[lo:hi]).copy_(torch.from_numpy(chunk))
+            with span("trpx.api.consume") as s:
+                hi = lo + chunk.shape[0]
+                torch.from_numpy(out[lo:hi]).copy_(torch.from_numpy(chunk))
+                s.host(chunk.nbytes)
             lo = hi
     else:
         out = ops.decode(archive, dtype, device=dev)

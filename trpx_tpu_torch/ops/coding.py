@@ -18,12 +18,16 @@ one-pass unpack (``decode_batch``). Each kernel wrapper launches the CUDA
 kernel for CUDA tensors and runs its plain PyTorch version for CPU
 tensors.
 
-Each layer of ``encode`` and ``decode`` runs in a ``record_function``
-range (``trpx.encode.pad``, ``.h2d``, ``.kernel``, ``.d2h``, ``.assemble``;
-``trpx.decode.walk``, ``.h2d``, ``.kernel``, ``.d2h``, ``.narrow``), so a
-``torch.profiler`` window over ``compress``/``decompress`` times the path
-by layer. The kernel ranges time the launches only: the D2H ranges wait
-for the kernels, whose device time the profiler reports on its own.
+Each layer of ``encode`` and ``decode`` runs in a span
+(``runtime.metrics.span``: ``trpx.encode.pad``, ``.h2d``, ``.kernel``,
+``.d2h``, ``.assemble``; ``trpx.decode.walk``, ``.h2d``, ``.kernel``,
+``.d2h``, ``.narrow``), so a ``torch.profiler`` window over
+``compress``/``decompress`` times the path by layer, and the spans count
+the host bytes they write and allocate. ``assemble`` and ``walk`` open in
+:func:`assemble_archive` and :func:`walk_archive`, so every caller of
+those gets them. The kernel spans time the launches only: the D2H spans
+wait for the kernels, whose device time the profiler reports on its
+own.
 
 Both are a dispatch half and a collect half (``encode_dispatch`` /
 ``encode_collect``, ``decode_dispatch`` / ``decode_collect``): dispatch
@@ -47,7 +51,6 @@ from dataclasses import dataclass
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
 from .. import native
 from .._fallback import warn_once
@@ -56,6 +59,7 @@ from ..format.header import TrpxMeta
 from ..format.pycodec import TrpxArchive, walk_frame
 from ..format.spec import DEFAULT_BLOCK, frame_nbytes
 from ..native import codec as ncodec
+from ..runtime.metrics import span
 from .cuda_pack import (
     encode_batch,
     encode_batch_tiled,
@@ -224,14 +228,16 @@ def encode(
     elif frames.ndim != 2:
         raise ValueError("frames must be 1-D, 2-D (batch) or 3-D (image stack)")
     spec = FrameSpec.for_dtype(frames.shape[1], frames.dtype, block)
-    with record_function("trpx.encode.pad"):
+    with span("trpx.encode.pad") as s:
         padded = _pad_batch(frames, spec)
-    with record_function("trpx.encode.h2d"):
+        if padded is not frames:
+            s.fresh(padded.nbytes)
+            s.host(frames.nbytes)
+    with span("trpx.encode.h2d"):
         x = torch.from_numpy(padded).to(device)
     del padded
     words, bits, maxw = encode_collect(encode_dispatch(spec, x))
-    with record_function("trpx.encode.assemble"):
-        return assemble_archive(spec, words, bits, maxw, dimensions)
+    return assemble_archive(spec, words, bits, maxw, dimensions)
 
 
 def _host_copy(t: torch.Tensor, pin: bool) -> torch.Tensor:
@@ -284,9 +290,9 @@ def encode_dispatch(spec: FrameSpec, x: torch.Tensor,
     ``spec.tiled_pack(F)``, else ``encode_batch``) and start copying the frame
     bit counts and widths back (into pinned memory when ``pin``). Returns
     without waiting for the device."""
-    with record_function("trpx.encode.kernel"):
+    with span("trpx.encode.kernel"):
         words, bits, maxw = pack_kernel(spec, len(x))(spec, x)
-    with record_function("trpx.encode.d2h"):
+    with span("trpx.encode.d2h"):
         host = (_host_copy(bits, pin), _host_copy(maxw, pin))
         return _in_flight(words, host, pin, x.device)
 
@@ -295,8 +301,9 @@ def encode_collect(p: InFlight):
     """Wait for an :func:`encode_dispatch` and copy the words that hold
     some frame's bytes to the host: (words (F, W) uint32, bits, maxw)
     numpy arrays. The words' copy runs on the dispatch's stream, which
-    owns them."""
-    with record_function("trpx.encode.d2h"):
+    owns them; into pageable memory (not ``pin``), it counts as fresh
+    bytes of ``trpx.encode.d2h``."""
+    with span("trpx.encode.d2h") as s:
         p.wait()
         bits, maxw = (t.numpy() for t in p.host)
         used = -(-frame_nbytes(int(bits.max())) // 4)
@@ -304,6 +311,8 @@ def encode_collect(p: InFlight):
             words = _host_copy(p.out[:, :used], p.pin)
             if p.stream is not None:
                 p.stream.synchronize()
+        if p.out.device.type != "cpu" and not p.pin:
+            s.fresh(words.nbytes)
         return words.numpy().view(np.uint32), bits, maxw
 
 
@@ -315,31 +324,41 @@ def assemble_archive(
     dimensions: tuple[int, ...] = (),
 ) -> TrpxArchive:
     """Concatenate per-frame word buffers into the final byte stream
-    (frames are byte-aligned with a terminal byte each — Terse.hpp:547)."""
-    F = words.shape[0]
-    nbytes = [frame_nbytes(int(b)) for b in bits]
-    total = int(np.sum(nbytes))
-    payload = np.zeros(total, dtype=np.uint8)
-    pos = 0
-    byte_view = np.ascontiguousarray(words).view(np.uint8).reshape(F, -1)
-    for f in range(F):
-        payload[pos : pos + nbytes[f]] = byte_view[f, : nbytes[f]]
-        pos += nbytes[f]
-    meta = TrpxMeta(
-        prolix_bits=int(np.max(maxw)),
-        signed=spec.signed,
-        block=spec.block,
-        memory_size=total,
-        number_of_values=spec.n,
-        dimensions=tuple(dimensions),
-        number_of_frames=F,
-    )
-    # the encoder knows every frame's offset: later decodes walk frames in
-    # parallel, and a .trpx.idx sidecar can be written without a walk
-    offsets = np.zeros(F, dtype=np.int64)
-    np.cumsum(nbytes[:-1], out=offsets[1:])
-    return TrpxArchive(meta=meta, payload=payload.tobytes(),
-                       frame_index=offsets)
+    (frames are byte-aligned with a terminal byte each — Terse.hpp:547),
+    in the span ``trpx.encode.assemble``, which counts the payload's two
+    copies: the array the frames are packed into and its ``bytes``."""
+    with span("trpx.encode.assemble") as s:
+        F = words.shape[0]
+        nbytes = [frame_nbytes(int(b)) for b in bits]
+        total = int(np.sum(nbytes))
+        payload = np.zeros(total, dtype=np.uint8)
+        pos = 0
+        packed = np.ascontiguousarray(words)
+        if packed is not words:
+            # a CPU device's words are a slice of its output
+            s.fresh(packed.nbytes)
+            s.host(packed.nbytes)
+        byte_view = packed.view(np.uint8).reshape(F, -1)
+        for f in range(F):
+            payload[pos : pos + nbytes[f]] = byte_view[f, : nbytes[f]]
+            pos += nbytes[f]
+        meta = TrpxMeta(
+            prolix_bits=int(np.max(maxw)),
+            signed=spec.signed,
+            block=spec.block,
+            memory_size=total,
+            number_of_values=spec.n,
+            dimensions=tuple(dimensions),
+            number_of_frames=F,
+        )
+        # the encoder knows every frame's offset: later decodes walk frames
+        # in parallel, and a .trpx.idx sidecar can be written without a walk
+        offsets = np.zeros(F, dtype=np.int64)
+        np.cumsum(nbytes[:-1], out=offsets[1:])
+        s.fresh(2 * total)
+        s.host(2 * total)
+        return TrpxArchive(meta=meta, payload=payload.tobytes(),
+                           frame_index=offsets)
 
 
 # ---------------------------------------------------------------- decode ---
@@ -418,80 +437,90 @@ def walk_archive(archive: TrpxArchive, spec: FrameSpec):
     row keeps at least two zero words after its stream: the unpack reads
     the word after each field's first word. The walk is cached on the
     archive (``width_table``, ``frame_index``), so a repeat decode of the
-    same object is walk-free.
+    same object is walk-free. Runs in the span ``trpx.decode.walk``,
+    which counts the padded payload, the tables and the words it writes,
+    each allocated anew.
     """
-    meta = archive.meta
-    F, nb = meta.number_of_frames, spec.nb
-    payload = archive.payload
-    widths = np.empty((F, nb), dtype=np.int32)
-    have_native = native.available()
-    if have_native:
-        # the padded copy of the payload (bit-reader slack) is a full
-        # memcpy: cache it on the archive across walks
-        buf = getattr(archive, "_padded_buf", None)
-        if buf is None:
-            buf = native.padded_buffer(payload)
-            archive._padded_buf = buf
-    wtab = getattr(archive, "width_table", None)
-    fidx0 = getattr(archive, "frame_index", None)
-    if wtab is not None and fidx0 is not None and wtab.shape == (F, nb):
-        starts = np.asarray(fidx0, dtype=np.int64)
-        ends = np.concatenate([starts[1:], [meta.memory_size]])
-        try:
-            validate_tables(spec, meta, wtab, starts, ends)
-        except ValueError as e:
-            # distrust both tables and walk the stream instead
-            warn_once("ops.sidecar_tables", e, "revalidating header walk")
-            wtab = fidx0 = None
-    else:
-        wtab = None
-    if wtab is not None:
-        widths[:] = wtab
-    elif have_native and fidx0 is not None:
-        starts = np.asarray(fidx0, dtype=np.int64)
-        native.walk_indexed(buf, starts, meta.number_of_values, meta.block,
-                            want_poffs=False, out_widths=widths,
-                            max_width=meta.prolix_bits)
-        ends = np.concatenate([starts[1:], [meta.memory_size]])
-    elif have_native:
-        _w, _o, fstarts = native.walk(buf, F, meta.number_of_values,
-                                      meta.block, want_poffs=False,
-                                      out_widths=widths,
-                                      max_width=meta.prolix_bits)
-        starts, ends = fstarts[:-1], fstarts[1:]
-    else:
-        starts = np.zeros(F, dtype=np.int64)
-        ends = np.zeros(F, dtype=np.int64)
-        pos = 0
-        for f in range(F):
-            w, _o, nxt = walk_frame(payload, pos, meta.number_of_values,
-                                    meta.block)
-            widths[f] = w
-            starts[f], ends[f] = pos, nxt
-            pos = nxt
-        if F and int(widths.max()) > meta.prolix_bits:
-            raise ValueError(
-                f"corrupt TRPX payload: block width {int(widths.max())}"
-                f" exceeds the header's prolix_bits={meta.prolix_bits}")
-    if wtab is None:
-        # every branch above proved widths <= prolix_bits
-        archive.width_table = widths.astype(np.uint8)
-        archive.frame_index = np.asarray(starts, dtype=np.int64)
-    max_bytes = int(np.max(ends - starts)) if F else 1
-    cap_words = -(-(max_bytes + 8) // 4)
-    if have_native:
-        # the C gather copies each frame and zeroes the rest of its row
-        words = np.empty((F, cap_words), dtype=np.uint32)
-        byte_view = words.view(np.uint8)
-        native.gather_frames(buf, starts, ends, byte_view)
-    else:
-        words = np.zeros((F, cap_words), dtype=np.uint32)
-        byte_view = words.view(np.uint8)
-        raw = np.frombuffer(payload, dtype=np.uint8)
-        for f in range(F):
-            chunk = raw[starts[f] : ends[f]]
-            byte_view[f, : len(chunk)] = chunk
-    return widths, words
+    with span("trpx.decode.walk") as s:
+        meta = archive.meta
+        F, nb = meta.number_of_frames, spec.nb
+        payload = archive.payload
+        widths = np.empty((F, nb), dtype=np.int32)
+        have_native = native.available()
+        if have_native:
+            # the padded copy of the payload (bit-reader slack) is a full
+            # memcpy: cache it on the archive across walks
+            buf = getattr(archive, "_padded_buf", None)
+            if buf is None:
+                buf = native.padded_buffer(payload)
+                archive._padded_buf = buf
+                if buf is not payload:
+                    s.fresh(buf.nbytes)
+                    s.host(len(payload))
+        wtab = getattr(archive, "width_table", None)
+        fidx0 = getattr(archive, "frame_index", None)
+        if wtab is not None and fidx0 is not None and wtab.shape == (F, nb):
+            starts = np.asarray(fidx0, dtype=np.int64)
+            ends = np.concatenate([starts[1:], [meta.memory_size]])
+            try:
+                validate_tables(spec, meta, wtab, starts, ends)
+            except ValueError as e:
+                # distrust both tables and walk the stream instead
+                warn_once("ops.sidecar_tables", e, "revalidating header walk")
+                wtab = fidx0 = None
+        else:
+            wtab = None
+        if wtab is not None:
+            widths[:] = wtab
+        elif have_native and fidx0 is not None:
+            starts = np.asarray(fidx0, dtype=np.int64)
+            native.walk_indexed(buf, starts, meta.number_of_values, meta.block,
+                                want_poffs=False, out_widths=widths,
+                                max_width=meta.prolix_bits)
+            ends = np.concatenate([starts[1:], [meta.memory_size]])
+        elif have_native:
+            _w, _o, fstarts = native.walk(buf, F, meta.number_of_values,
+                                          meta.block, want_poffs=False,
+                                          out_widths=widths,
+                                          max_width=meta.prolix_bits)
+            starts, ends = fstarts[:-1], fstarts[1:]
+        else:
+            starts = np.zeros(F, dtype=np.int64)
+            ends = np.zeros(F, dtype=np.int64)
+            pos = 0
+            for f in range(F):
+                w, _o, nxt = walk_frame(payload, pos, meta.number_of_values,
+                                        meta.block)
+                widths[f] = w
+                starts[f], ends[f] = pos, nxt
+                pos = nxt
+            if F and int(widths.max()) > meta.prolix_bits:
+                raise ValueError(
+                    f"corrupt TRPX payload: block width {int(widths.max())}"
+                    f" exceeds the header's prolix_bits={meta.prolix_bits}")
+        if wtab is None:
+            # every branch above proved widths <= prolix_bits
+            archive.width_table = widths.astype(np.uint8)
+            archive.frame_index = np.asarray(starts, dtype=np.int64)
+        max_bytes = int(np.max(ends - starts)) if F else 1
+        cap_words = -(-(max_bytes + 8) // 4)
+        if have_native:
+            # the C gather copies each frame and zeroes the rest of its row
+            words = np.empty((F, cap_words), dtype=np.uint32)
+            byte_view = words.view(np.uint8)
+            native.gather_frames(buf, starts, ends, byte_view)
+        else:
+            words = np.zeros((F, cap_words), dtype=np.uint32)
+            byte_view = words.view(np.uint8)
+            raw = np.frombuffer(payload, dtype=np.uint8)
+            for f in range(F):
+                chunk = raw[starts[f] : ends[f]]
+                byte_view[f, : len(chunk)] = chunk
+        # the int32 widths, their uint8 table when walked, the words
+        tables = widths.nbytes + (widths.size if wtab is None else 0)
+        s.fresh(tables + words.nbytes)
+        s.host(tables + words.nbytes)
+        return widths, words
 
 
 def decode(archive: TrpxArchive, dtype, *, device) -> np.ndarray:
@@ -506,9 +535,8 @@ def decode(archive: TrpxArchive, dtype, *, device) -> np.ndarray:
         if native.available():
             return ncodec.decode(archive, dtype)
         return pycodec.decode(archive, dtype)
-    with record_function("trpx.decode.walk"):
-        widths, words = walk_archive(archive, spec)
-        widths = widths.astype(np.uint8)
+    widths, words = walk_archive(archive, spec)
+    widths = widths.astype(np.uint8)
     p = decode_dispatch(spec, torch.from_numpy(words.view(np.int32)),
                         torch.from_numpy(widths), torch.device(device))
     return decode_collect(p, dtype)
@@ -524,13 +552,15 @@ def decode_dispatch(spec: FrameSpec, words: torch.Tensor,
     back (into pinned memory when ``pin``). Returns without waiting for
     the device. From pinned host tensors the input copies are
     asynchronous too."""
-    with record_function("trpx.decode.h2d"):
+    with span("trpx.decode.h2d"):
         x = words.to(device, non_blocking=True)
         w = widths.to(device, non_blocking=True)
-    with record_function("trpx.decode.kernel"):
+    with span("trpx.decode.kernel"):
         out = unpack_kernel(spec, len(x))(spec, x, w, decoded_dtype(spec))
-    with record_function("trpx.decode.d2h"):
+    with span("trpx.decode.d2h") as s:
         host = (_host_copy(out, pin),) if fetch else ()
+        if fetch and device.type != "cpu" and not pin:
+            s.fresh(out.nbytes)
         return _in_flight(out, host, pin, device)
 
 
@@ -539,8 +569,18 @@ def decode_collect(p: InFlight, dtype) -> np.ndarray:
     output on the host: (F, n) of ``dtype``. The result may share memory
     with the dispatch's host buffer, which nothing else reuses while the
     result lives."""
-    with record_function("trpx.decode.d2h"):
+    with span("trpx.decode.d2h"):
         p.wait()
         out = p.host[0].numpy()
-    with record_function("trpx.decode.narrow"):
-        return narrow_values(out, dtype)
+    return narrow(out, dtype)
+
+
+def narrow(vals: np.ndarray, dtype) -> np.ndarray:
+    """:func:`narrow_values` in the span ``trpx.decode.narrow``, which
+    counts the clamp's temporary and the new array when it copies."""
+    with span("trpx.decode.narrow") as s:
+        out = narrow_values(vals, dtype)
+        if out is not vals and out.flags.owndata:
+            s.fresh(vals.nbytes + out.nbytes)
+            s.host(vals.nbytes + out.nbytes)
+        return out

@@ -10,7 +10,8 @@ and these buffers are kept across calls rather than pinned anew for each.
 :func:`fetch` move a batch of rows to and from a device through two
 buffers a slot of at most :data:`BOUNCE_BYTES` each, so the pinned memory
 stays bounded whatever the batch, and the host's copy of one chunk runs
-while the card copies the other.
+while the card copies the other. They run in the spans
+``trpx.stage.upload`` and ``trpx.stage.fetch``.
 """
 
 from __future__ import annotations
@@ -21,6 +22,8 @@ import warnings
 
 import numpy as np
 import torch
+
+from ..runtime.metrics import span
 
 #: bytes of each of the two bounce buffers of an upload or fetch slot
 BOUNCE_BYTES = 32 << 20
@@ -110,7 +113,8 @@ def upload(staging: Staging, slot, src: np.ndarray, cols: int,
     pin = device.type == "cuda"
     side = staging.side(device) if pin else None
     R = _chunk_rows(cols, dtype)
-    with torch.cuda.stream(side) if pin else contextlib.nullcontext():
+    with span("trpx.stage.upload"), \
+            torch.cuda.stream(side) if pin else contextlib.nullcontext():
         x = torch.empty((F, cols), dtype=dtype, device=device)
         for j, a in enumerate(range(0, F, R)):
             key = (slot, j % 2)
@@ -137,23 +141,24 @@ def fetch(staging: Staging, parts: list, out: torch.Tensor) -> None:
             for slot, lo, t in parts]
     steps = max((-(-len(t) // R) for _, _, t, R in plan), default=0)
     pending = []
-    for j in range(steps + 1):
-        started = []
-        for slot, lo, t, R in plan:
-            a, b = j * R, min((j + 1) * R, len(t))
-            if a >= b:
-                continue
-            key = (slot, j % 2)
-            pin = t.device.type == "cuda"
-            buf = staging.buffer(key, t[a:b].numel(), t.dtype, pin)
-            buf = buf.view(t[a:b].shape)
-            stream = torch.cuda.current_stream(t.device) if pin else None
-            with (torch.cuda.stream(stream) if pin
-                  else contextlib.nullcontext()):
-                buf.copy_(t[a:b], non_blocking=True)
-            staging.used(key, stream)
-            started.append((key, buf, lo + a, lo + b))
-        for key, buf, a, b in pending:
-            staging.ready(key)
-            out[a:b].copy_(buf)
-        pending = started
+    with span("trpx.stage.fetch"):
+        for j in range(steps + 1):
+            started = []
+            for slot, lo, t, R in plan:
+                a, b = j * R, min((j + 1) * R, len(t))
+                if a >= b:
+                    continue
+                key = (slot, j % 2)
+                pin = t.device.type == "cuda"
+                buf = staging.buffer(key, t[a:b].numel(), t.dtype, pin)
+                buf = buf.view(t[a:b].shape)
+                stream = torch.cuda.current_stream(t.device) if pin else None
+                with (torch.cuda.stream(stream) if pin
+                      else contextlib.nullcontext()):
+                    buf.copy_(t[a:b], non_blocking=True)
+                staging.used(key, stream)
+                started.append((key, buf, lo + a, lo + b))
+            for key, buf, a, b in pending:
+                staging.ready(key)
+                out[a:b].copy_(buf)
+            pending = started

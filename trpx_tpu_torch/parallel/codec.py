@@ -31,6 +31,12 @@ associative reduction. So:
 * decode is the host's serial header walk, then the unpack of each local
   device's frame shard.
 
+Each host step runs in a span (``runtime.metrics.span``): the uploads
+in ``trpx.stage.upload``, the collect in ``trpx.encode.d2h``, the
+assembly in ``trpx.encode.assemble``, the walk in ``trpx.decode.walk``,
+the pixels' way back in ``trpx.stage.fetch`` and their narrowing in
+``trpx.decode.narrow``, as on one card.
+
 Without an initialized process group the world is this process. What the
 JAX package sizes for TPU memory or lane layout (measured capacity
 schedules, the overflow re-encode, mesh padding of the frame count, the
@@ -50,6 +56,7 @@ from ..ops import coding
 from ..ops import staging
 from ..ops.coding import FrameSpec, walk_archive
 from ..ops.cuda_unpack import decoded_dtype
+from ..runtime.metrics import span
 
 
 def default_devices() -> list[torch.device]:
@@ -137,23 +144,27 @@ class ShardedCodec:
         bytes; then starts every shard's words into its rows of one new
         array (pinned if a device is a CUDA one), then waits for them all.
         Only each frame's first ``frame_nbytes(bits)`` bytes of words are
-        defined."""
-        F = flights[-1][1] if flights else 0
-        bits = np.zeros(F, np.int64)
-        maxw = np.zeros(F, np.int64)
-        for lo, hi, p in flights:
-            p.wait()
-            bits[lo:hi], maxw[lo:hi] = (t.numpy() for t in p.host)
-        W = -(-frame_nbytes(int(bits.max())) // 4) if F else 0
-        words = torch.empty((F, W), dtype=torch.int32, pin_memory=any(
-            d.type == "cuda" for d in self.devices))
-        for lo, hi, p in flights:
-            with coding._on(p.stream):
-                words[lo:hi].copy_(p.out[:, :W], non_blocking=True)
-        for _, _, p in flights:
-            if p.stream is not None:
-                p.stream.synchronize()
-        return words.numpy().view(np.uint32), bits, maxw
+        defined. Runs in the span ``trpx.encode.d2h``, which counts pageable
+        words as fresh bytes."""
+        with span("trpx.encode.d2h") as s:
+            F = flights[-1][1] if flights else 0
+            bits = np.zeros(F, np.int64)
+            maxw = np.zeros(F, np.int64)
+            for lo, hi, p in flights:
+                p.wait()
+                bits[lo:hi], maxw[lo:hi] = (t.numpy() for t in p.host)
+            W = -(-frame_nbytes(int(bits.max())) // 4) if F else 0
+            pin = any(d.type == "cuda" for d in self.devices)
+            words = torch.empty((F, W), dtype=torch.int32, pin_memory=pin)
+            if not pin:
+                s.fresh(words.nbytes)
+            for lo, hi, p in flights:
+                with coding._on(p.stream):
+                    words[lo:hi].copy_(p.out[:, :W], non_blocking=True)
+            for _, _, p in flights:
+                if p.stream is not None:
+                    p.stream.synchronize()
+            return words.numpy().view(np.uint32), bits, maxw
 
     def _encode_local(self, frames: np.ndarray):
         """Pack this process's (F, n) frames, split over its devices ->
@@ -257,7 +268,7 @@ class ShardedCodec:
             parts.append((("pixels", i), lo, p.out))
         host = torch.empty((F, self.spec.n), dtype=decoded_dtype(self.spec))
         staging.fetch(self._staging, parts, host)
-        return coding.narrow_values(host.numpy(), dtype)
+        return coding.narrow(host.numpy(), dtype)
 
 
 def encode_sharded(

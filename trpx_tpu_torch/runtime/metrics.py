@@ -9,6 +9,15 @@ by ``torch.cuda.get_device_name()``. ``profiler_trace`` is a
 ``torch.profiler`` window in place of ``jax.profiler``. ``event_ms`` and
 ``device_ms`` time a call on the card: CUDA events around a loop of
 calls, with and without the host's share.
+
+:class:`span` is the one way the port opens a ``trpx.*`` range: a
+``torch.profiler.record_function`` around the body, so host spans and the
+card's operations share the profiler's clock, and a handle for counting
+at that span. The counters are plain dict adds, always on and without a
+lock. :func:`counters` reads them all. The kernel wrappers keep their
+own ``launches``.
+Spans are leaves: no ``trpx.*`` span opens while another is open on the
+same thread, so their durations never hold one another.
 """
 
 from __future__ import annotations
@@ -153,6 +162,65 @@ def profiler_trace(log_dir: str | None):
         yield
     Path(log_dir).mkdir(parents=True, exist_ok=True)
     prof.export_chrome_trace(str(Path(log_dir) / "trace.json"))
+
+
+#: this process's counters by name, from its start or the last
+#: :func:`reset_counters`: ``host_bytes.<span>`` and ``fresh_bytes.<span>``
+#: (:meth:`span.host`, :meth:`span.fresh`) and the event counters of
+#: :func:`count` (``calls.api.*``)
+_COUNTS: dict[str, int] = {}
+
+
+def count(name: str, n: int = 1) -> None:
+    """Add `n` to the counter `name`: a dict add without a lock (two
+    threads that count at once may lose one add)."""
+    _COUNTS[name] = _COUNTS.get(name, 0) + n
+
+
+class span:
+    """``with span("trpx.<layer>.<step>") as s:`` runs the body in
+    ``torch.profiler.record_function(name)`` and gives it ``s`` to count
+    at the span: ``s.host(n)``, bytes the host's code writes into host
+    memory there (not the copies between a card and the host, nor a
+    tensor on a CPU device, which stands for a card's memory), and
+    ``s.fresh(n)``, bytes of pageable host arrays allocated anew there
+    (pinned buffers come from torch's caching host allocator and are not
+    counted). Both count the arrays that grow with a frame's values
+    (payloads, words, width tables, pixels) and leave out those of a few
+    numbers a frame (offsets, bit counts). ``tests/test_torch_trace.py``
+    holds each span's fresh bytes to the allocations that ``tracemalloc``
+    and the profiler see in it."""
+
+    __slots__ = ("name", "_range")
+
+    def __init__(self, name: str) -> None:
+        self.name = name
+
+    def __enter__(self) -> "span":
+        from torch.profiler import record_function
+
+        self._range = record_function(self.name)
+        self._range.__enter__()
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self._range.__exit__(*exc)
+
+    def host(self, n: int) -> None:
+        count("host_bytes." + self.name, int(n))
+
+    def fresh(self, n: int) -> None:
+        count("fresh_bytes." + self.name, int(n))
+
+
+def counters() -> dict:
+    """A snapshot of every counter of :func:`count` and :class:`span`."""
+    return dict(_COUNTS)
+
+
+def reset_counters() -> None:
+    """Zero every counter of :data:`_COUNTS` (tests)."""
+    _COUNTS.clear()
 
 
 def event_ms(fn, iters: int) -> float:

@@ -33,7 +33,6 @@ from pathlib import Path
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
 from .. import api as _api
 from .. import native
@@ -53,6 +52,7 @@ from ..ops.coding import (
     walk_archive,
 )
 from ..ops.staging import Staging
+from .metrics import span
 
 
 @dataclass
@@ -203,10 +203,10 @@ class StreamingEncoder:
         if self.backend == "host":
             self._write_host_chunk(frames)
             return
-        with record_function("trpx.stream.stage"):
+        with span("trpx.stream.stage"):
             k, staged = self._stage(frames)
         with _on(self._stream):
-            with record_function("trpx.stream.h2d"):
+            with span("trpx.stream.h2d"):
                 x = staged.to(self.device, non_blocking=True)
                 self._staging.used(k, self._stream)
             out = encode_dispatch(self.spec, x, pin=self._stream is not None)
@@ -257,7 +257,7 @@ class StreamingEncoder:
         nbytes = np.array([frame_nbytes(int(b)) for b in bits], np.int64)
         offs = (self.m.payload_bytes
                 + np.concatenate([[0], np.cumsum(nbytes[:-1])])).astype("<u8")
-        with record_function("trpx.stream.write"):
+        with span("trpx.stream.write"):
             self._append([byte_view[f, : nbytes[f]] for f in range(F)], offs)
             self._checkpoint(F, int(nbytes.sum()), int(np.max(maxw)))
 
@@ -465,10 +465,18 @@ def _native_chunks(archive: TrpxArchive, spec: FrameSpec, C: int,
     frame's stream; the unpack reads the word after each field's first)
     and (nf, nb) uint8 widths, pinned when ``pin``. Takes the archive's
     tables when they prove valid, else walks chunk by chunk and leaves the
-    walk's tables on the archive at the end."""
+    walk's tables on the archive at the end. The payload's padded copy
+    runs in the span ``trpx.stream.buffer``, each chunk's walk (and the
+    table it leaves) in ``trpx.stream.walk`` and its gather in
+    ``trpx.stream.gather``; each counts the host bytes it writes and
+    allocates."""
     meta = archive.meta
     F, n = meta.number_of_frames, meta.number_of_values
-    buf = native.padded_buffer(archive.payload)
+    with span("trpx.stream.buffer") as s:
+        buf = native.padded_buffer(archive.payload)
+        if buf is not archive.payload:
+            s.fresh(buf.nbytes)
+            s.host(len(archive.payload))
     payload_len = buf.shape[0] - native.SLACK
     wtab = getattr(archive, "width_table", None)
     fidx = getattr(archive, "frame_index", None)
@@ -484,9 +492,6 @@ def _native_chunks(archive: TrpxArchive, spec: FrameSpec, C: int,
             warn_once("stream.sidecar_tables", e,
                       "revalidating chunked header walk")
             have_tables = False
-    if not have_tables:
-        acc_w = np.empty((F, spec.nb), np.uint8)
-        acc_off = np.empty(F, np.int64)
     pos = 0
     for lo in range(0, F, C):
         nf = min(C, F - lo)
@@ -495,15 +500,22 @@ def _native_chunks(archive: TrpxArchive, spec: FrameSpec, C: int,
             ends = ends_all[lo : lo + nf]
             widths_c = wtab[lo : lo + nf]
         else:
-            with record_function("trpx.stream.walk"):
+            with span("trpx.stream.walk") as s:
+                if lo == 0:
+                    acc_w = np.empty((F, spec.nb), np.uint8)
+                    acc_off = np.empty(F, np.int64)
+                    s.fresh(acc_w.nbytes)
                 widths_c, _poffs, fstarts = native.walk_chunk(
                     buf, pos, nf, n, spec.block, max_width=meta.prolix_bits)
-            starts = pos + fstarts[:nf]
-            ends = pos + fstarts[1:]
-            acc_w[lo : lo + nf] = widths_c
-            acc_off[lo : lo + nf] = starts
-            pos = int(ends[-1])
-        with record_function("trpx.stream.gather"):
+                starts = pos + fstarts[:nf]
+                ends = pos + fstarts[1:]
+                acc_w[lo : lo + nf] = widths_c
+                acc_off[lo : lo + nf] = starts
+                pos = int(ends[-1])
+                # the walker's int32 widths, and their rows of the table
+                s.fresh(widths_c.nbytes)
+                s.host(widths_c.nbytes + widths_c.size)
+        with span("trpx.stream.gather") as s:
             cap_words = -(-(int((ends - starts).max()) + 8) // 4)
             words = torch.empty((nf, cap_words), dtype=torch.int32,
                                 pin_memory=pin)
@@ -512,6 +524,10 @@ def _native_chunks(archive: TrpxArchive, spec: FrameSpec, C: int,
             widths = torch.empty((nf, spec.nb), dtype=torch.uint8,
                                  pin_memory=pin)
             widths.numpy()[:] = widths_c
+            gathered = words.nbytes + widths.nbytes
+            s.host(gathered)
+            if not pin:
+                s.fresh(gathered)
         yield nf, words, widths
     if not have_tables:
         archive.width_table = acc_w
