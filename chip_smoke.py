@@ -1726,7 +1726,7 @@ def race_drill(dev, card: str, calls: int = RACE_CALLS) -> None:
         encode_batch_tiled,
         walk_archive,
     )
-    from trpx_tpu_torch.ops.coding import _pad_batch
+    from trpx_tpu_torch.ops.staging import Staging, upload
     from trpx_tpu_torch.ops.cuda_pack import stream_words
 
     rng = np.random.default_rng(SEED + 13)
@@ -1752,7 +1752,8 @@ def race_drill(dev, card: str, calls: int = RACE_CALLS) -> None:
                          functools.partial(fn, spec, wo, wd,
                                            decoded_dtype(spec)), want))
         if dt in (np.uint8, np.uint16, np.uint32):
-            x = torch.from_numpy(_pad_batch(fr, spec)).to(dev)
+            x = upload(Staging(), "x", fr, spec.n_padded,
+                       spec.torch_dtype, dev)
             want = encode_batch_plain(spec, x)
             for fn in (encode_batch, encode_batch_tiled):
                 packs.append((f"{fn.__name__} {name}",
@@ -1877,9 +1878,10 @@ def _checked_child(expect_path: str, workdir: str) -> int:
     got = hostile_phase(card, Path(workdir), expect=expect)
     t_corpus = time.perf_counter() - t
     t = time.perf_counter()
+    tests = Path(__file__).resolve().parent / "tests"
+    sys.path.insert(0, str(tests))     # its helpers beside it
     spec = importlib.util.spec_from_file_location(
-        "test_torch_cuda", Path(__file__).resolve().parent / "tests"
-        / "test_torch_cuda.py")
+        "test_torch_cuda", tests / "test_torch_cuda.py")
     cards = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(cards)
     for dt in (np.uint16, np.uint8, np.int32):
@@ -2370,7 +2372,7 @@ def main() -> int:
         encode_batch_tiled_plain,
         walk_archive,
     )
-    from trpx_tpu_torch.ops.coding import _pad_batch
+    from trpx_tpu_torch.ops.staging import Staging, upload
     from trpx_tpu_torch.ops.cuda_pack import (
         defined_words,
         pack_geometry,
@@ -2423,7 +2425,8 @@ def main() -> int:
         """Device inputs of the kernels for frames `fr` (F, n) in blocks of
         `block` values."""
         spec = FrameSpec.for_dtype(fr.shape[1], fr.dtype, block)
-        x = torch.from_numpy(_pad_batch(fr, spec)).to(dev)
+        x = upload(Staging(), "x", fr, spec.n_padded, spec.torch_dtype,
+                   dev)
         widths, words = walk_archive(ncodec.encode(fr, block=block), spec)
         return dict(spec=spec, x=x, odt=decoded_dtype(spec),
                     wd=torch.from_numpy(widths.astype(np.uint8)).to(dev),

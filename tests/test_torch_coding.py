@@ -4,6 +4,7 @@ sidecar-table validation and its once-per-process warning. Inputs come
 from numpy seeds; tolerance exact.
 """
 
+import threading
 import warnings
 
 import numpy as np
@@ -17,12 +18,15 @@ from trpx_tpu.format import pycodec as jpycodec
 from trpx_tpu.io.trpx import read_trpx as jread_trpx
 from trpx_tpu.ops import coding as jcoding
 from trpx_tpu_torch import _fallback as tfallback
+from trpx_tpu_torch import api as tapi
 from trpx_tpu_torch.io.trpx import read_trpx, write_index, write_trpx
 from trpx_tpu_torch.format.pycodec import TrpxArchive
 from trpx_tpu_torch.native import codec as ncodec
 from trpx_tpu_torch.ops import coding as tcoding
+from trpx_tpu_torch.ops import staging
 from trpx_tpu_torch.ops.cuda_pack import plan_batch
 
+from _torch_helpers import pad_batch
 from test_torch_pack import _any_frames, u16_frames
 
 DTYPES = [np.uint8, np.int8, np.uint16, np.int16, np.uint32, np.int32]
@@ -60,7 +64,7 @@ def test_plan_tables_match_plan_frame(dt, kind, n):
                           "u8": np.uint8}[dt], n, seed=n)
     spec = tcoding.FrameSpec.for_dtype(n, fr.dtype)
     jspec = jcoding.FrameSpec.for_dtype(n, fr.dtype)
-    padded = tcoding._pad_batch(fr, spec)
+    padded = pad_batch(fr, spec)
     ours = plan_batch(spec, torch.from_numpy(padded))
     for f in range(fr.shape[0]):
         x = padded[f]
@@ -180,7 +184,7 @@ def test_assemble_archive_matches_jax():
     from trpx_tpu_torch.ops.cuda_pack import encode_batch_plain
 
     w, b, m = encode_batch_plain(
-        spec, torch.from_numpy(tcoding._pad_batch(fr, spec)))
+        spec, torch.from_numpy(pad_batch(fr, spec)))
     w, b, m = w.numpy().view(np.uint32), b.numpy(), m.numpy()
     jspec = jcoding.FrameSpec.for_dtype(1000, np.uint16)
     ours = tcoding.assemble_archive(spec, w, b, m, (10, 100))
@@ -270,3 +274,112 @@ def test_rejected_sidecar_message_is_the_jax_packages(tmp_path,
     assert ours[0].startswith("trpx_tpu_torch fallback at ops.sidecar_tables"
                               " (revalidating header walk): ValueError: ")
     assert ours[0].replace("trpx_tpu_torch", "trpx_tpu", 1) == theirs[0]
+
+
+# ------------------------------------------------ the encode's staging ---
+
+def _hot(dtype, shape, seed, low=1):
+    """(F, h, w) frames of `dtype`: Poisson(3) plus `low`, with 7 hot
+    pixels at the dtype's maximum."""
+    rng = np.random.default_rng(seed)
+    fr = rng.poisson(3.0, shape) + low
+    fr[rng.integers(0, shape[0], 7), rng.integers(0, shape[1], 7), 0] = \
+        np.iinfo(dtype).max
+    return fr.astype(dtype)
+
+
+def _native_bytes(fr, block):
+    return ncodec.encode(fr.reshape(len(fr), -1), block=block,
+                         dimensions=(fr.shape[2], fr.shape[1])).to_bytes()
+
+
+#: consecutive ``compress`` calls of one thread: (dtype, (F, h, w), block)
+#: a call. Each call but the last reuses or grows the buffers of the one
+#: before; every call but the last has values of 1,000 and more, the last
+#: of a few, so that a pad column that still held an earlier call's value
+#: would widen its block and change the bytes
+SEQUENCES = {
+    "wide_u32_then_narrow_u16": [
+        (np.uint32, (6, 40, 50), 12), (np.uint16, (9, 16, 20), 12)],
+    "wide_u16_then_narrow_u16": [
+        (np.uint16, (6, 40, 50), 12), (np.uint16, (9, 16, 20), 12)],
+    "256_frames_then_tiled_2048_u32_then_256": [
+        (np.uint32, (256, 64, 64), 12), (np.uint32, (1, 2048, 2048), 12),
+        (np.uint32, (256, 64, 64), 12)],
+    "pad_of_11": [
+        (np.uint16, (6, 30, 50), 12), (np.uint16, (5, 25, 49), 12)],
+    "block_64_then_block_16": [
+        (np.int16, (5, 30, 41), 64), (np.int16, (5, 30, 41), 16)],
+}
+
+
+@pytest.mark.parametrize("calls", list(SEQUENCES))
+def test_consecutive_compress_calls_leave_no_stale_pad(calls):
+    """Consecutive ``compress`` calls of one thread, of other shapes,
+    dtypes and blocks, stage through the thread's kept bounce buffers
+    (``ops.staging.upload``): each archive is the native codec's bytes."""
+    last = len(SEQUENCES[calls]) - 1
+    for k, (dtype, shape, block) in enumerate(SEQUENCES[calls]):
+        fr = _hot(dtype, shape, k, 1 if k == last else 1000)
+        got = tapi.compress(fr, block=block, device="cpu")
+        assert got.to_bytes() == _native_bytes(fr, block), k
+
+
+def test_compress_keeps_its_thread_staging():
+    """A second call of the same shape writes into the first call's
+    bounce buffers: the thread's staging allocates nothing new."""
+    fr = _hot(np.uint16, (9, 16, 20), 3)
+    tapi.compress(fr, device="cpu")
+    stage = tcoding._thread_staging()
+    kept = {k: t.data_ptr() for k, t in stage._buf.items()}
+    assert tapi.compress(fr[::-1], device="cpu").to_bytes() == \
+        _native_bytes(fr[::-1], 12)
+    assert tcoding._thread_staging() is stage
+    assert {k: t.data_ptr() for k, t in stage._buf.items()} == kept
+
+
+def test_threads_compress_at_once():
+    """Four threads compress distinct stacks at once, three shapes each:
+    each thread stages through its own buffers, and every archive is the
+    native codec's bytes."""
+    shapes = [(np.uint16, (9, 40, 50), 12), (np.uint16, (7, 16, 20), 12),
+              (np.uint32, (5, 25, 49), 12)]
+    start = threading.Barrier(4)
+    out, stagings, errors = {}, {}, []
+
+    def run(t):
+        try:
+            start.wait()
+            for k, (dtype, shape, block) in enumerate(shapes):
+                fr = _hot(dtype, shape, 10 * t + k)
+                out[t, k] = (fr, block, tapi.compress(
+                    fr, block=block, device="cpu").to_bytes())
+            stagings[t] = tcoding._thread_staging()
+        except Exception as e:   # reported below with the thread
+            errors.append((t, e))
+
+    threads = [threading.Thread(target=run, args=(t,)) for t in range(4)]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join()
+    assert errors == []
+    for (t, k), (fr, block, got) in out.items():
+        assert got == _native_bytes(fr, block), (t, k)
+    assert len({id(st) for st in stagings.values()}) == 4
+    assert tcoding._thread_staging() not in stagings.values()
+
+
+@pytest.mark.parametrize("first", [(3, 6), (5, 9), (2, 4)])
+def test_rows_zero_the_pad_of_a_reused_buffer(first):
+    """``Staging.rows`` zeroes the columns past the rows it copies, also
+    in a buffer whose last rows were wider or filled those columns."""
+    stage = staging.Staging()
+    stage.rows("x", np.full(first, 7, np.uint16), first[1], torch.uint16,
+               False)
+    buf = stage._buf["x"].data_ptr()
+    view = stage.rows("x", np.ones((2, 3), np.uint16), 4, torch.uint16,
+                      False)
+    assert view.data_ptr() == buf
+    np.testing.assert_array_equal(
+        view.numpy(), np.pad(np.ones((2, 3), np.uint16), ((0, 0), (0, 1))))

@@ -12,6 +12,7 @@ their words are compared through ``stream_words``.
 """
 
 import importlib.util
+import threading
 from pathlib import Path
 
 import numpy as np
@@ -36,13 +37,15 @@ from trpx_tpu_torch.ops import (
     tiled_unpack_geometry,
     walk_archive,
 )
-from trpx_tpu_torch.ops.coding import _pad_batch
 from trpx_tpu_torch.ops.cuda_pack import (
     block_widths,
     pack_geometry,
     stream_words,
 )
 from trpx_tpu_torch.ops.cuda_unpack import unpack_geometry
+from trpx_tpu_torch.runtime import metrics
+
+from _torch_helpers import pad_batch
 
 pytestmark = pytest.mark.cuda
 
@@ -84,7 +87,7 @@ def _same_pack(got, want):
 def test_pack_kernel_matches_plain(cuda, dtype, n):
     fr = _frames(dtype, n, seed=n)
     spec = FrameSpec.for_dtype(n, dtype)
-    x = torch.from_numpy(_pad_batch(fr, spec)).to(cuda)
+    x = torch.from_numpy(pad_batch(fr, spec)).to(cuda)
     before = encode_batch.launches
     got = encode_batch(spec, x)
     assert encode_batch.launches == before + 1
@@ -148,7 +151,7 @@ def test_one_pass_kernels_match_plain(cuda, dtype, n, kind):
     edges."""
     fr = _one_pass_frames(dtype, n, kind)
     spec = FrameSpec.for_dtype(n, dtype)
-    x = torch.from_numpy(_pad_batch(fr, spec)).to(cuda)
+    x = torch.from_numpy(pad_batch(fr, spec)).to(cuda)
     want = encode_batch_plain(spec, x)
     _same_pack(encode_batch(spec, x), want)
     wd = block_widths(spec, x)[1].to(torch.uint8).contiguous()
@@ -170,7 +173,7 @@ def test_one_pass_kernels_other_blocks(cuda, dtype, block):
     fr = _frames(dtype, n, seed=block)
     spec = FrameSpec.for_dtype(n, dtype, block)
     assert unpack_geometry(spec)[0] >= 32
-    x = torch.from_numpy(_pad_batch(fr, spec)).to(cuda)
+    x = torch.from_numpy(pad_batch(fr, spec)).to(cuda)
     want = encode_batch_plain(spec, x)
     _same_pack(encode_batch(spec, x), want)
     wd = block_widths(spec, x)[1].to(torch.uint8).contiguous()
@@ -195,7 +198,7 @@ def test_wide_blocks_on_card(cuda, dtype):
     info = np.iinfo(dtype)
     fr[1, block * 40 : block * 41] = info.min if info.min < 0 else info.max
     spec = FrameSpec.for_dtype(n, dtype, block)
-    x = torch.from_numpy(_pad_batch(fr, spec)).to(cuda)
+    x = torch.from_numpy(pad_batch(fr, spec)).to(cuda)
     got = encode_batch_tiled_plain(spec, x)
     _same_pack(encode_batch_tiled(spec, x), got)
     wd = block_widths(spec, x)[1].to(torch.uint8).contiguous()
@@ -256,7 +259,7 @@ TILED_CASES = [(np.uint8, 64 * 12 * 3 + 100), (np.int8, 64 * 12 * 2),
 def test_tiled_pack_kernel_matches_plain(cuda, dtype, n, tile_blocks):
     fr = _tiled_frames(dtype, n, seed=n)
     spec = FrameSpec.for_dtype(n, dtype)
-    x = torch.from_numpy(_pad_batch(fr, spec)).to(cuda)
+    x = torch.from_numpy(pad_batch(fr, spec)).to(cuda)
     before = encode_batch_tiled.launches
     got = encode_batch_tiled(spec, x, tile_blocks)
     assert encode_batch_tiled.launches == before + 1
@@ -289,7 +292,7 @@ def _both_tiled_kernels(spec, fr, cuda):
     """Both tiled kernels at their default geometry against their plain
     versions (and the untiled plain pack) on frames `fr`, and the decode
     against the frames."""
-    x = torch.from_numpy(_pad_batch(fr, spec)).to(cuda)
+    x = torch.from_numpy(pad_batch(fr, spec)).to(cuda)
     want = encode_batch_tiled_plain(spec, x)
     _same_pack(encode_batch_tiled(spec, x), want)
     _same_pack(encode_batch_tiled(spec, x), encode_batch_plain(spec, x))
@@ -725,7 +728,7 @@ def test_launchers_leave_the_current_device(cuda, tmp_path):
     n = 5000
     fr = _frames(np.uint16, n, seed=41)
     spec = FrameSpec.for_dtype(n, np.uint16)
-    x = torch.from_numpy(_pad_batch(fr, spec)).to(other)
+    x = torch.from_numpy(pad_batch(fr, spec)).to(other)
     widths, words = walk_archive(ncodec.encode(fr), spec)
     wd = torch.from_numpy(widths.astype(np.uint8)).to(other)
     wo = torch.from_numpy(words.view(np.int32)).to(other)
@@ -835,3 +838,126 @@ def test_sharded_codec_on_every_card(cuda):
             fr, dimensions=(side, side)).to_bytes()
         np.testing.assert_array_equal(codec.decode(arch, fr.dtype), fr)
         assert torch.cuda.current_device() == cur
+
+
+# ------------------------------------------ the encode's kept staging ---
+
+def _quad512(seed):
+    """256 x 512x512 u16 frames, Poisson(3) with 200 hot pixels a frame
+    at 60,000."""
+    rng = np.random.default_rng(seed)
+    fr = rng.poisson(3.0, (256, 512, 512)).astype(np.uint16)
+    hot = 256 * 200
+    fr[np.repeat(np.arange(256), 200), rng.integers(0, 512, hot),
+       rng.integers(0, 512, hot)] = 60_000
+    return fr
+
+
+def _native_stack(fr):
+    return ncodec.encode(fr.reshape(len(fr), -1),
+                         dimensions=(fr.shape[2], fr.shape[1])).to_bytes()
+
+
+def _pinned(call):
+    """(call(), its change of the ``pinned_bytes.*`` counters)."""
+    before = metrics.counters()
+    out = call()
+    after = metrics.counters()
+    return out, {k: v - before.get(k, 0) for k, v in after.items()
+                 if k.startswith("pinned_bytes.") and v != before.get(k, 0)}
+
+
+def _in_new_thread(fn):
+    """fn() in a thread of its own, whose encode staging starts empty."""
+    box = {}
+
+    def run():
+        try:
+            box["out"] = fn()
+        except BaseException as e:   # raised below, in the caller
+            box["error"] = e
+
+    t = threading.Thread(target=run)
+    t.start()
+    t.join()
+    if "error" in box:
+        raise box["error"]
+    return box["out"]
+
+
+@pytest.mark.parametrize("before", [None, "4 x 2048x2048 u32"])
+def test_compress_through_kept_pinned_buffers(cuda, before):
+    """``compress`` of 256 x 512x512 u16 on the card, twice in a new
+    thread, after nothing or a 4-frame 2048x2048 u32 call (the tiled
+    pack's route, whose values then fill the bounce buffers): the native
+    codec's bytes every time. The thread pins its two bounce buffers in
+    the first call of a dtype and shape, and a second call pins nothing."""
+    from trpx_tpu_torch.ops import staging
+
+    fr = _quad512(41)
+    want = _native_stack(fr)
+    big = _big_u32(4, 42).reshape(4, 2048, 2048) if before else None
+
+    def run():
+        if before:
+            arch, _ = _pinned(lambda: compress(big, device=cuda))
+            assert arch.to_bytes() == _native_stack(big)
+        pins = []
+        for _ in range(2):
+            arch, got = _pinned(lambda: compress(fr, device=cuda))
+            assert arch.to_bytes() == want
+            pins.append(got)
+        return pins
+
+    first, second = _in_new_thread(run)
+    cols = FrameSpec.for_dtype(512 * 512, np.uint16).n_padded
+    rows = staging._chunk_rows(cols, torch.uint16)
+    assert first == {"pinned_bytes.trpx.encode.h2d": 2 * rows * cols * 2}
+    assert second == {}
+
+
+def test_staging_pins_a_buffer_made_pageable(cuda):
+    """A thread's staging serves CPU and card encodes alike: a buffer
+    first made pageable (a CPU device's request) is pinned anew for the
+    first CUDA copy that asks for it, and counted then."""
+    from trpx_tpu_torch.ops import staging
+
+    stage = staging.Staging()
+    src = np.arange(12, dtype=np.uint16).reshape(3, 4) + 1
+    assert not stage.rows("x", src, 6, torch.uint16, False).is_pinned()
+    with metrics.span("trpx.test.pin") as s:
+        view, got = _pinned(
+            lambda: stage.rows("x", src, 6, torch.uint16, True, s))
+    assert view.is_pinned()
+    assert got == {"pinned_bytes.trpx.test.pin": 3 * 6 * 2}
+    np.testing.assert_array_equal(view.numpy(),
+                                  np.pad(src, ((0, 0), (0, 2))))
+
+
+def test_compress_from_two_threads_on_card(cuda):
+    """Two threads compress 256 x 512x512 u16 stacks on the card at once,
+    twice each, the other thread's stack second: each thread stages
+    through its own pinned buffers and side stream, and every archive is
+    the native codec's bytes."""
+    stacks = [_quad512(43), _quad512(44)]
+    wants = [_native_stack(fr) for fr in stacks]
+    start = threading.Barrier(2)
+    got, errors = {}, []
+
+    def run(t):
+        try:
+            start.wait()
+            for k in range(2):
+                got[t, k] = compress(stacks[(t + k) % 2],
+                                     device=cuda).to_bytes()
+        except Exception as e:   # reported below with the thread
+            errors.append((t, e))
+
+    threads = [threading.Thread(target=run, args=(t,)) for t in range(2)]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join()
+    assert errors == []
+    assert got == {(t, k): wants[(t + k) % 2]
+                   for t in range(2) for k in range(2)}

@@ -18,6 +18,8 @@ from trpx_tpu_torch.native import codec as ncodec
 from trpx_tpu_torch.ops import coding as tcoding
 from trpx_tpu_torch.ops.cuda_pack import encode_batch, encode_batch_plain
 
+from _torch_helpers import pad_batch
+
 
 def u16_frames(kind: str, n: int, seed: int = 0) -> np.ndarray:
     """Three Poisson(3) u16 frames, shaped by ``kind``."""
@@ -124,7 +126,7 @@ def test_terminal_byte_and_tail_are_zero():
     fr = u16_frames("hot", 1000)
     spec = tcoding.FrameSpec.for_dtype(1000, np.uint16)
     w, b, _ = encode_batch_plain(
-        spec, torch.from_numpy(tcoding._pad_batch(fr, spec)))
+        spec, torch.from_numpy(pad_batch(fr, spec)))
     w = w.numpy().view(np.uint32).astype(np.int64)
     for f in range(3):
         bits = int(b[f])
@@ -150,7 +152,7 @@ def test_wrapper_checks_inputs():
 
 def test_cpu_tensors_take_the_plain_version():
     spec = tcoding.FrameSpec.for_dtype(100, np.uint16)
-    x = torch.from_numpy(tcoding._pad_batch(u16_frames("hot", 100), spec))
+    x = torch.from_numpy(pad_batch(u16_frames("hot", 100), spec))
     before = encode_batch.launches
     got = encode_batch(spec, x)
     want = encode_batch_plain(spec, x)

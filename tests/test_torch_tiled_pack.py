@@ -17,6 +17,7 @@ import pytest
 import torch
 
 import trpx_tpu_torch
+from _torch_helpers import pad_batch
 from test_format_golden import GOLDEN
 from test_torch_pack import _any_frames
 from trpx_tpu.ops import coding as jcoding
@@ -74,7 +75,7 @@ def test_tiled_plain_matches_pallas_tiled(small_tiles, kind, n):
         pallas_pack.encode_batch_pallas_tiled(jspec, padded, True))
     spec = tcoding.FrameSpec.for_dtype(n, fr.dtype)
     w, b, m = encode_batch_tiled_plain(
-        spec, torch.from_numpy(tcoding._pad_batch(fr, spec)), TB)
+        spec, torch.from_numpy(pad_batch(fr, spec)), TB)
     np.testing.assert_array_equal(b.numpy(), jb)
     np.testing.assert_array_equal(m.numpy(), jm)
     # JAX leaves words past each frame's bytes unspecified: compare the
@@ -96,7 +97,7 @@ def test_default_tiles_match_pallas_tiled(small_tiles, kind):
     fr = _jax_case(kind, n)
     spec = tcoding.FrameSpec.for_dtype(n, fr.dtype)
     assert -(-spec.nb // tiled_pack_geometry(spec)[0]) == 3
-    x = torch.from_numpy(tcoding._pad_batch(fr, spec))
+    x = torch.from_numpy(pad_batch(fr, spec))
     w, b, m = encode_batch_tiled_plain(spec, x)
     for g, want in zip((w, b, m), encode_batch_plain(spec, x)):
         assert torch.equal(g, want)
@@ -148,7 +149,7 @@ def test_one_block_tiles_of_blocks_larger_than_a_tile(dtype):
     fr = big_block_frames(dtype)
     spec = tcoding.FrameSpec.for_dtype(fr.shape[1], dtype, BIG_BLOCK)
     assert tiled_pack_geometry(spec)[0] == 1
-    x = torch.from_numpy(tcoding._pad_batch(fr, spec))
+    x = torch.from_numpy(pad_batch(fr, spec))
     got = encode_batch_tiled(spec, x)   # CPU: plain version
     for g, w in zip(got, encode_batch_plain(spec, x)):
         assert torch.equal(g, w)
@@ -184,7 +185,7 @@ def edge_frames(dtype, n: int = TB * 12 * 3 + 101, seed: int = 0):
 def test_tiled_plain_equals_untiled_plain(dtype, tile_blocks):
     fr = edge_frames(dtype)
     spec = tcoding.FrameSpec.for_dtype(fr.shape[1], dtype)
-    x = torch.from_numpy(tcoding._pad_batch(fr, spec))
+    x = torch.from_numpy(pad_batch(fr, spec))
     before = encode_batch_tiled.launches
     got = encode_batch_tiled(spec, x, tile_blocks)   # CPU: plain version
     assert encode_batch_tiled.launches == before
@@ -201,7 +202,7 @@ def test_golden_vectors_through_tiled_encode(name, vals, dtype, block, attrs,
     arr = np.array(vals, dtype=dtype)[None]
     spec = tcoding.FrameSpec.for_dtype(arr.shape[1], dtype, block)
     w, b, m = encode_batch_tiled_plain(
-        spec, torch.from_numpy(tcoding._pad_batch(arr, spec)), tile_blocks)
+        spec, torch.from_numpy(pad_batch(arr, spec)), tile_blocks)
     arch = tcoding.assemble_archive(spec, w.numpy().view(np.uint32),
                                     b.numpy(), m.numpy())
     assert arch.payload == bytes.fromhex(payload_hex.replace(" ", ""))

@@ -1,12 +1,13 @@
 """Device path of the PyTorch port: TRPX encode/decode of frame batches.
 
-The counterpart of ``trpx_tpu/ops/coding.py``. Encode pads a batch to the
-block grid, runs the pack kernel on the requested device and assembles a
-byte-exact ``.trpx`` archive on the host. Decode walks the archive's block
-headers on the host (the native walker, serial by nature), then runs the
-unpack kernel. Where the JAX package routes by ``pallas_ok`` and
-``pallas_ok_decode``, this one routes by what an H100 measured
-(``route_sweep``): an encode of fewer than ``TILED_PACK_MAX_FRAMES``
+The counterpart of ``trpx_tpu/ops/coding.py``. Encode uploads a batch,
+zero-padded to the block grid, through the calling thread's pinned bounce
+buffers (``ops.staging.upload``), runs the pack kernel on the requested
+device and assembles a byte-exact ``.trpx`` archive on the host. Decode
+walks the archive's block headers on the host (the native walker, serial
+by nature), then runs the unpack kernel. Where the JAX package routes by
+``pallas_ok`` and ``pallas_ok_decode``, this one routes by what an H100
+measured (``route_sweep``): an encode of fewer than ``TILED_PACK_MAX_FRAMES``
 frames of at least ``TILED_MIN_BLOCKS`` blocks each takes the tiled pack
 (``cuda_pack.encode_batch_tiled``), as do blocks too large for the
 one-pass kernel's shared memory, which the tiled pack has no limit on
@@ -19,8 +20,8 @@ kernel for CUDA tensors and runs its plain PyTorch version for CPU
 tensors.
 
 Each layer of ``encode`` and ``decode`` runs in a span
-(``runtime.metrics.span``: ``trpx.encode.pad``, ``.h2d``, ``.kernel``,
-``.d2h``, ``.assemble``; ``trpx.decode.walk``, ``.h2d``, ``.kernel``,
+(``runtime.metrics.span``: ``trpx.encode.h2d``, ``.kernel``, ``.d2h``,
+``.assemble``; ``trpx.decode.walk``, ``.h2d``, ``.kernel``,
 ``.d2h``, ``.narrow``), so a ``torch.profiler`` window over
 ``compress``/``decompress`` times the path by layer, and the spans count
 the host bytes they write and allocate. ``assemble`` and ``walk`` open in
@@ -47,6 +48,7 @@ widths) has no counterpart here.
 from __future__ import annotations
 
 import contextlib
+import threading
 from dataclasses import dataclass
 
 import numpy as np
@@ -60,6 +62,7 @@ from ..format.pycodec import TrpxArchive, walk_frame
 from ..format.spec import DEFAULT_BLOCK, frame_nbytes
 from ..native import codec as ncodec
 from ..runtime.metrics import span
+from . import staging
 from .cuda_pack import (
     encode_batch,
     encode_batch_tiled,
@@ -196,13 +199,16 @@ def unpack_kernel(spec: FrameSpec, frames: int):
     return decode_batch_tiled if spec.tiled(frames) else decode_batch
 
 
-def _pad_batch(frames: np.ndarray, spec: FrameSpec) -> np.ndarray:
-    """Zero-pad each frame to the block grid (n_padded values)."""
-    if frames.shape[1] == spec.n_padded:
-        return np.ascontiguousarray(frames)
-    out = np.zeros((frames.shape[0], spec.n_padded), dtype=frames.dtype)
-    out[:, : spec.n] = frames
-    return out
+#: each thread's host staging: its bounce buffers (pinned for a card) and
+#: side streams are kept across that thread's encodes and never shared
+#: with another thread's
+_local = threading.local()
+
+
+def _thread_staging() -> staging.Staging:
+    if not hasattr(_local, "staging"):
+        _local.staging = staging.Staging()
+    return _local.staging
 
 
 def encode(
@@ -228,14 +234,9 @@ def encode(
     elif frames.ndim != 2:
         raise ValueError("frames must be 1-D, 2-D (batch) or 3-D (image stack)")
     spec = FrameSpec.for_dtype(frames.shape[1], frames.dtype, block)
-    with span("trpx.encode.pad") as s:
-        padded = _pad_batch(frames, spec)
-        if padded is not frames:
-            s.fresh(padded.nbytes)
-            s.host(frames.nbytes)
-    with span("trpx.encode.h2d"):
-        x = torch.from_numpy(padded).to(device)
-    del padded
+    x = staging.upload(_thread_staging(), "frames", frames, spec.n_padded,
+                       spec.torch_dtype, torch.device(device),
+                       name="trpx.encode.h2d")
     words, bits, maxw = encode_collect(encode_dispatch(spec, x))
     return assemble_archive(spec, words, bits, maxw, dimensions)
 

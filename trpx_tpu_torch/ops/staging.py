@@ -11,7 +11,12 @@ and these buffers are kept across calls rather than pinned anew for each.
 buffers a slot of at most :data:`BOUNCE_BYTES` each, so the pinned memory
 stays bounded whatever the batch, and the host's copy of one chunk runs
 while the card copies the other. They run in the spans
-``trpx.stage.upload`` and ``trpx.stage.fetch``.
+``trpx.stage.upload`` (or the name the caller gives: the single-card
+encode's is ``trpx.encode.h2d``) and ``trpx.stage.fetch``. An upload
+counts the bytes the host writes into its bounce buffers (rows and pad)
+as ``host_bytes.<span>``; each pinned buffer allocated counts its bytes
+once as ``pinned_bytes.<span>``, so a warm call of a shape seen before
+counts none.
 """
 
 from __future__ import annotations
@@ -37,7 +42,7 @@ class Staging:
     fall back to pageable memory. It is zeroed when allocated and grows
     only when a request needs more than it holds. Before a buffer is
     handed out again, the host waits for the device work that last used
-    it (:meth:`used`)."""
+    it (:meth:`used`). A ``Staging`` belongs to one thread at a time."""
 
     def __init__(self) -> None:
         self._buf: dict = {}
@@ -56,26 +61,29 @@ class Staging:
         if ev is not None:
             ev.synchronize()
 
-    def buffer(self, slot, numel: int, dtype: torch.dtype,
-               pin: bool) -> torch.Tensor:
+    def buffer(self, slot, numel: int, dtype: torch.dtype, pin: bool,
+               at: span | None = None) -> torch.Tensor:
         """The first `numel` elements of slot's buffer, once the host may
-        write them."""
+        write them. A pinned buffer allocated here counts its bytes at the
+        open span `at` (:meth:`span.pinned`; None: not counted)."""
         self.ready(slot)
         buf = self._buf.get(slot)
-        if buf is None or buf.numel() < numel or buf.dtype != dtype:
+        if (buf is None or buf.numel() < numel or buf.dtype != dtype
+                or (pin and not buf.is_pinned())):
             buf = torch.zeros(numel, dtype=dtype, pin_memory=pin)
             self._buf[slot] = buf
+            if pin and at is not None:
+                at.pinned(buf.nbytes)
         return buf[:numel]
 
     def rows(self, slot, src: np.ndarray, cols: int, dtype: torch.dtype,
-             pin: bool) -> torch.Tensor:
+             pin: bool, at: span | None = None) -> torch.Tensor:
         """Copy the host rows `src` (F, c) into the first c columns of
-        slot's buffer viewed as (F, `cols`) and return that view. Columns
-        past c are never written: in a slot that only ever takes rows of c
-        values into `cols` columns they stay zero (the pad to the block
-        grid)."""
+        slot's buffer viewed as (F, `cols`), zero columns c to `cols` (the
+        pad to the block grid, which a buffer last used for other rows
+        may hold stale values in) and return that view."""
         F, c = src.shape
-        view = self.buffer(slot, F * cols, dtype, pin).view(F, cols)
+        view = self.buffer(slot, F * cols, dtype, pin, at).view(F, cols)
         with warnings.catch_warnings():
             # the rows are only read: a read-only input is fine
             warnings.simplefilter("ignore", UserWarning)
@@ -84,6 +92,8 @@ class Staging:
         # one: 28-36 against 106-127 ms per 32 x 2048x2048 u32 chunk on
         # the 8-core host of an H100 80GB HBM3 (PERF.md, section 6)
         view[:, :c].copy_(src)
+        if c < cols:
+            view[:, c:].zero_()
         return view
 
     def used(self, slot, stream) -> None:
@@ -101,27 +111,30 @@ def _chunk_rows(cols: int, dtype: torch.dtype) -> int:
 
 
 def upload(staging: Staging, slot, src: np.ndarray, cols: int,
-           dtype: torch.dtype, device: torch.device) -> torch.Tensor:
+           dtype: torch.dtype, device: torch.device,
+           name: str = "trpx.stage.upload") -> torch.Tensor:
     """Copy the host rows `src` (F, c) into a new (F, `cols`) tensor on
     `device`, zero past column c, through the bounce buffers ``(slot, 0)``
-    and ``(slot, 1)``, which the host fills in turn. For a CUDA device
-    they are pinned and the copies run on the device's side stream
-    (:meth:`Staging.side`), which its current stream then waits for: the
-    host waits only for an earlier upload from the same buffer, never for
-    a kernel. Returns without waiting for the last copy."""
+    and ``(slot, 1)``, which the host fills in turn, in the span `name`.
+    For a CUDA device they are pinned and the copies run on the device's
+    side stream (:meth:`Staging.side`), which its current stream then
+    waits for: the host waits only for an earlier upload from the same
+    buffer, never for a kernel. Returns without waiting for the last
+    copy."""
     F, _ = src.shape
     pin = device.type == "cuda"
     side = staging.side(device) if pin else None
     R = _chunk_rows(cols, dtype)
-    with span("trpx.stage.upload"), \
+    with span(name) as s, \
             torch.cuda.stream(side) if pin else contextlib.nullcontext():
         x = torch.empty((F, cols), dtype=dtype, device=device)
         for j, a in enumerate(range(0, F, R)):
             key = (slot, j % 2)
             b = min(a + R, F)
-            x[a:b].copy_(staging.rows(key, src[a:b], cols, dtype, pin),
+            x[a:b].copy_(staging.rows(key, src[a:b], cols, dtype, pin, s),
                          non_blocking=True)
             staging.used(key, side)
+        s.host(F * cols * dtype.itemsize)
     if pin:
         stream = torch.cuda.current_stream(device)
         stream.wait_stream(side)
@@ -141,7 +154,7 @@ def fetch(staging: Staging, parts: list, out: torch.Tensor) -> None:
             for slot, lo, t in parts]
     steps = max((-(-len(t) // R) for _, _, t, R in plan), default=0)
     pending = []
-    with span("trpx.stage.fetch"):
+    with span("trpx.stage.fetch") as s:
         for j in range(steps + 1):
             started = []
             for slot, lo, t, R in plan:
@@ -150,7 +163,7 @@ def fetch(staging: Staging, parts: list, out: torch.Tensor) -> None:
                     continue
                 key = (slot, j % 2)
                 pin = t.device.type == "cuda"
-                buf = staging.buffer(key, t[a:b].numel(), t.dtype, pin)
+                buf = staging.buffer(key, t[a:b].numel(), t.dtype, pin, s)
                 buf = buf.view(t[a:b].shape)
                 stream = torch.cuda.current_stream(t.device) if pin else None
                 with (torch.cuda.stream(stream) if pin

@@ -165,9 +165,10 @@ def profiler_trace(log_dir: str | None):
 
 
 #: this process's counters by name, from its start or the last
-#: :func:`reset_counters`: ``host_bytes.<span>`` and ``fresh_bytes.<span>``
-#: (:meth:`span.host`, :meth:`span.fresh`) and the event counters of
-#: :func:`count` (``calls.api.*``)
+#: :func:`reset_counters`: ``host_bytes.<span>``, ``fresh_bytes.<span>``
+#: and ``pinned_bytes.<span>`` (:meth:`span.host`, :meth:`span.fresh`,
+#: :meth:`span.pinned`) and the event counters of :func:`count`
+#: (``calls.api.*``)
 _COUNTS: dict[str, int] = {}
 
 
@@ -187,7 +188,9 @@ class span:
     (pinned buffers come from torch's caching host allocator and are not
     counted). Both count the arrays that grow with a frame's values
     (payloads, words, width tables, pixels) and leave out those of a few
-    numbers a frame (offsets, bit counts). ``tests/test_torch_trace.py``
+    numbers a frame (offsets, bit counts). ``s.pinned(n)`` counts the
+    bytes of a pinned buffer allocated there to be kept across calls
+    (``ops.staging``), apart from both. ``tests/test_torch_trace.py``
     holds each span's fresh bytes to the allocations that ``tracemalloc``
     and the profiler see in it."""
 
@@ -211,6 +214,9 @@ class span:
 
     def fresh(self, n: int) -> None:
         count("fresh_bytes." + self.name, int(n))
+
+    def pinned(self, n: int) -> None:
+        count("pinned_bytes." + self.name, int(n))
 
 
 def counters() -> dict:

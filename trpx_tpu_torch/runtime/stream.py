@@ -12,10 +12,10 @@ removes the temporaries.
 
 On a CUDA device both directions overlap the host with the card, as the
 JAX package does by asynchronous dispatch: each chunk goes through one of
-two pinned, zero-initialised staging buffers (the copy into it is the pad
-to the block grid), its copy to the card and its kernel run on a side
-CUDA stream, and events say when a buffer may be reused and when results
-have landed. ``add_frames`` dispatches chunk k before it writes chunk k-1;
+two pinned staging buffers (the copy into it zeroes the pad to the block
+grid), its copy to the card and its kernel run on a side CUDA stream,
+and events say when a buffer may be reused and when results have
+landed. ``add_frames`` dispatches chunk k before it writes chunk k-1;
 ``iter_decode`` walks and dispatches chunk k+1 before it yields chunk k.
 
 Not ported, because they size TPU memory or bound XLA recompiles: the
@@ -216,8 +216,8 @@ class StreamingEncoder:
 
     def _stage(self, frames: np.ndarray):
         """Copy a chunk into the next staging buffer, once the copy to the
-        device that last read that buffer has completed. Columns past
-        ``nvalues`` are never written, so they stay zero: the pad."""
+        device that last read that buffer has completed, and zero the
+        columns past ``nvalues``: the pad."""
         k, self._turn = self._turn, self._turn ^ 1
         return k, self._staging.rows(k, frames, self.spec.n_padded,
                                      self.spec.torch_dtype,
