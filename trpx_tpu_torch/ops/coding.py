@@ -17,7 +17,11 @@ takes the tiled unpack (``cuda_unpack.decode_batch_tiled``), as do blocks
 the one-pass unpack cannot tile (``FrameSpec.tiled``), any other the
 one-pass unpack (``decode_batch``). Each kernel wrapper launches the CUDA
 kernel for CUDA tensors and runs its plain PyTorch version for CPU
-tensors.
+tensors. ``encode_dispatch`` and ``decode_dispatch`` count the frames of
+each launch under the wrapper that took them (``runtime.metrics.count``:
+``frames.encode_batch``, ``frames.encode_batch_tiled``,
+``frames.decode_batch``, ``frames.decode_batch_tiled``), so every caller
+leaves a record of the route its frames took.
 
 Each layer of ``encode`` and ``decode`` runs in a span
 (``runtime.metrics.span``: ``trpx.encode.h2d``, ``.kernel``, ``.d2h``,
@@ -61,7 +65,7 @@ from ..format.header import TrpxMeta
 from ..format.pycodec import TrpxArchive, walk_frame
 from ..format.spec import DEFAULT_BLOCK, frame_nbytes
 from ..native import codec as ncodec
-from ..runtime.metrics import span
+from ..runtime.metrics import count, span
 from . import staging
 from .cuda_pack import (
     encode_batch,
@@ -288,11 +292,14 @@ def encode_dispatch(spec: FrameSpec, x: torch.Tensor,
                     pin: bool = False) -> InFlight:
     """Launch the pack kernel of the padded (F, n_padded) batch ``x`` on
     the current stream of its device (``encode_batch_tiled`` when
-    ``spec.tiled_pack(F)``, else ``encode_batch``) and start copying the frame
-    bit counts and widths back (into pinned memory when ``pin``). Returns
-    without waiting for the device."""
+    ``spec.tiled_pack(F)``, else ``encode_batch``), counting its F frames
+    in ``frames.<wrapper>``, and start copying the frame bit counts and
+    widths back (into pinned memory when ``pin``). Returns without waiting
+    for the device."""
+    kernel = pack_kernel(spec, len(x))
+    count("frames." + kernel.__name__, len(x))
     with span("trpx.encode.kernel"):
-        words, bits, maxw = pack_kernel(spec, len(x))(spec, x)
+        words, bits, maxw = kernel(spec, x)
     with span("trpx.encode.d2h"):
         host = (_host_copy(bits, pin), _host_copy(maxw, pin))
         return _in_flight(words, host, pin, x.device)
@@ -549,15 +556,18 @@ def decode_dispatch(spec: FrameSpec, words: torch.Tensor,
     """Copy host ``words`` (F, W) int32 and ``widths`` (F, nb) uint8 to
     ``device`` and launch the unpack kernel there on the current stream
     (``decode_batch_tiled`` when ``spec.tiled(F)``, else
-    ``decode_batch``); with ``fetch``, start copying the (F, n) output
+    ``decode_batch``), counting its F frames in ``frames.<wrapper>``;
+    with ``fetch``, start copying the (F, n) output
     back (into pinned memory when ``pin``). Returns without waiting for
     the device. From pinned host tensors the input copies are
     asynchronous too."""
     with span("trpx.decode.h2d"):
         x = words.to(device, non_blocking=True)
         w = widths.to(device, non_blocking=True)
+    kernel = unpack_kernel(spec, len(x))
+    count("frames." + kernel.__name__, len(x))
     with span("trpx.decode.kernel"):
-        out = unpack_kernel(spec, len(x))(spec, x, w, decoded_dtype(spec))
+        out = kernel(spec, x, w, decoded_dtype(spec))
     with span("trpx.decode.d2h") as s:
         host = (_host_copy(out, pin),) if fetch else ()
         if fetch and device.type != "cpu" and not pin:

@@ -15,7 +15,7 @@ calls, with and without the host's share.
 card's operations share the profiler's clock, and a handle for counting
 at that span. The counters are plain dict adds, always on and without a
 lock. :func:`counters` reads them all. The kernel wrappers keep their
-own ``launches``.
+own ``launches``; ``ops.coding`` counts the frames each took.
 Spans are leaves: no ``trpx.*`` span opens while another is open on the
 same thread, so their durations never hold one another.
 """
@@ -168,7 +168,8 @@ def profiler_trace(log_dir: str | None):
 #: :func:`reset_counters`: ``host_bytes.<span>``, ``fresh_bytes.<span>``
 #: and ``pinned_bytes.<span>`` (:meth:`span.host`, :meth:`span.fresh`,
 #: :meth:`span.pinned`) and the event counters of :func:`count`
-#: (``calls.api.*``)
+#: (``calls.api.*``; ``frames.<kernel wrapper>``, the frames each pack
+#: and unpack wrapper took, from ``ops.coding``)
 _COUNTS: dict[str, int] = {}
 
 
