@@ -20,6 +20,7 @@ import pytest
 import torch
 
 from trpx_tpu_torch import compress, decompress
+from trpx_tpu_torch.format.pycodec import TrpxArchive
 from trpx_tpu_torch.native import codec as ncodec
 from trpx_tpu_torch.ops import (
     TILED_MAX_FRAMES,
@@ -858,13 +859,14 @@ def _native_stack(fr):
                          dimensions=(fr.shape[2], fr.shape[1])).to_bytes()
 
 
-def _pinned(call):
-    """(call(), its change of the ``pinned_bytes.*`` counters)."""
+def _pinned(call, names=("pinned_bytes.",)):
+    """(call(), its change of the counters whose names start with one of
+    `names`: by default the ``pinned_bytes.*`` counters)."""
     before = metrics.counters()
     out = call()
     after = metrics.counters()
     return out, {k: v - before.get(k, 0) for k, v in after.items()
-                 if k.startswith("pinned_bytes.") and v != before.get(k, 0)}
+                 if k.startswith(names) and v != before.get(k, 0)}
 
 
 def _in_new_thread(fn):
@@ -961,3 +963,136 @@ def test_compress_from_two_threads_on_card(cuda):
     assert errors == []
     assert got == {(t, k): wants[(t + k) % 2]
                    for t in range(2) for k in range(2)}
+
+
+# ------------------------------ the synchronous decode's lent results ---
+
+def _gapped_u32(seed, h=1024, w=2048):
+    """An (h, w) u32 image of 8 MiB: Poisson(0.5) under rows and columns
+    of masked pixels at 2^32-1, as a detector's module gaps."""
+    rng = np.random.default_rng(seed)
+    img = rng.poisson(0.5, (h, w)).astype(np.uint32)
+    img[500:538] = img[:, 1030:1042] = np.iinfo(np.uint32).max
+    return img
+
+
+def _image_blob(img):
+    return ncodec.encode(img.reshape(1, -1),
+                         dimensions=(img.shape[1], img.shape[0])).to_bytes()
+
+
+def _native(blob, dtype):
+    return ncodec.decode(TrpxArchive.from_bytes(blob), dtype)
+
+
+def _pageable(blob, dtype=None):
+    """``blob`` decoded on the card with no room for a lent result."""
+    from trpx_tpu_torch.ops import staging
+
+    with pytest.MonkeyPatch.context() as m:
+        m.setattr(staging, "PINNED_RESULT_BYTES", 0)
+        out = decompress(blob, dtype, device="cuda")
+    assert not torch.from_numpy(out).is_pinned()
+    return out
+
+
+def _result_counts(call):
+    """(call(), its change of the counters of the decode's copy back)."""
+    return _pinned(call, ("results.", "pinned_bytes.trpx.decode.d2h",
+                          "fresh_bytes.trpx.decode.d2h"))
+
+
+def _same_pixels(got, img, blob):
+    """``got`` equals the image, the native codec's decode and the
+    pageable path's."""
+    np.testing.assert_array_equal(got, img)
+    np.testing.assert_array_equal(
+        got.reshape(-1), _native(blob, img.dtype).reshape(-1))
+    np.testing.assert_array_equal(got, _pageable(blob, img.dtype))
+
+
+def test_decode_results_stay_separate(cuda):
+    """An image's result, kept while another image decodes, keeps its
+    pixels: each lent result has its own pinned block. Once the first is
+    dropped, its block serves the next decode, which is right too."""
+    imgs = [_gapped_u32(61), _gapped_u32(62)]
+    blobs = [_image_blob(i) for i in imgs]
+    a = decompress(blobs[0], device=cuda)
+    b = decompress(blobs[1], device=cuda)
+    assert torch.from_numpy(a).is_pinned()
+    assert torch.from_numpy(b).is_pinned()
+    assert a.ctypes.data != b.ctypes.data
+    _same_pixels(a, imgs[0], blobs[0])
+    _same_pixels(b, imgs[1], blobs[1])
+    del a
+    c = decompress(blobs[0], device=cuda)
+    _same_pixels(c, imgs[0], blobs[0])
+    _same_pixels(b, imgs[1], blobs[1])
+
+
+def test_warm_decodes_pin_nothing(cuda):
+    """Decodes whose results are dropped before the next call find their
+    block in torch's cache: each counts ``results.pinned`` and pins no
+    byte anew, allocates no fresh pageable bytes, and hands its loan
+    back when its result dies."""
+    from trpx_tpu_torch.ops import staging
+
+    img = _gapped_u32(63)
+    blob = _image_blob(img)
+    lent = staging.RESULTS.lent
+    decompress(blob, device=cuda)
+    for _ in range(3):
+        out, got = _result_counts(lambda: decompress(blob, device=cuda))
+        assert got == {"results.pinned": 1}
+        assert staging.RESULTS.lent == lent + img.nbytes
+        _same_pixels(out, img, blob)
+        del out
+        assert staging.RESULTS.lent == lent
+
+
+def test_decode_over_the_budget_is_pageable(cuda, monkeypatch):
+    """With room for two lent results, a third decode while both are held
+    returns pageable memory (``results.pageable``, its bytes fresh), with
+    the right pixels; once they are dropped, decodes are lent again."""
+    from trpx_tpu_torch.ops import staging
+
+    img = _gapped_u32(64)
+    blob = _image_blob(img)
+    monkeypatch.setattr(staging, "PINNED_RESULT_BYTES",
+                        staging.RESULTS.lent + 2 * img.nbytes)
+    held = [decompress(blob, device=cuda) for _ in range(2)]
+    assert all(torch.from_numpy(h).is_pinned() for h in held)
+    out, got = _result_counts(lambda: decompress(blob, device=cuda))
+    assert got == {"results.pageable": 1,
+                   "fresh_bytes.trpx.decode.d2h": img.nbytes}
+    assert not torch.from_numpy(out).is_pinned()
+    _same_pixels(out, img, blob)
+    held.clear()
+    out, got = _result_counts(lambda: decompress(blob, device=cuda))
+    assert got == {"results.pinned": 1}
+    assert torch.from_numpy(out).is_pinned()
+    _same_pixels(out, img, blob)
+
+
+@pytest.mark.parametrize("dtype,pinned", [
+    (np.uint32, True), (np.int32, True), (np.uint16, True),
+    (np.uint8, False), (np.int16, False), (np.int8, False)])
+def test_decode_result_memory_by_dtype(cuda, dtype, pinned):
+    """Results in the unpack's own lanes (u16; i32, and i32 lanes read as
+    u32) are views of the lent pinned block; a narrowing into a smaller
+    type copies into pageable memory, and the block's loan ends with the
+    call. Pixels equal the frames, the native codec's and the pageable
+    path's either way."""
+    from trpx_tpu_torch.ops import staging
+
+    fr = _frames(dtype, 512 * 512, 71)
+    blob = ncodec.encode(fr).to_bytes()
+    lent = staging.RESULTS.lent
+    out, got = _result_counts(lambda: decompress(blob, dtype, device=cuda))
+    assert got["results.pinned"] == 1
+    assert out.dtype == dtype
+    assert torch.from_numpy(out).is_pinned() == pinned
+    assert (staging.RESULTS.lent > lent) == pinned
+    _same_pixels(out, fr, blob)
+    del out
+    assert staging.RESULTS.lent == lent

@@ -212,6 +212,12 @@ def decompress(
     defaults to :func:`output_dtype` of the stream. ``frames`` selects a
     subset (an int, slice or sequence of indices) at O(selected frames)
     cost. ``device``: see the module docstring.
+
+    A decode of up to ``_DEVICE_CHUNK_FRAMES`` frames on a card may
+    return page-locked memory, lent from torch's caching host allocator
+    while the results that callers hold stay within
+    ``ops.staging.PINNED_RESULT_BYTES`` (``ops.decode``); its block goes
+    back to torch's cache when the result and every view of it have died.
     """
     count("calls.api.decompress")
     archive = _as_archive(archive)

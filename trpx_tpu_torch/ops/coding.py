@@ -40,7 +40,10 @@ copies the inputs to the device, launches the kernel on the current
 stream and starts the copies back; collect waits for them and does the
 host work. ``encode`` and ``decode`` run one after the other; the stream
 (``runtime.stream``) dispatches chunk k on a side CUDA stream before it
-collects chunk k-1.
+collects chunk k-1. ``decode`` on a card lends its result from torch's
+caching host allocator, pinned, while the results that callers hold stay
+within ``staging.PINNED_RESULT_BYTES``, and counts the path each result
+took (``results.pinned``, ``results.pageable``).
 
 The format, the archive object and the host walker are the port's own
 ``format`` and ``native`` packages, copies of the JAX package's that
@@ -245,13 +248,16 @@ def encode(
     return assemble_archive(spec, words, bits, maxw, dimensions)
 
 
-def _host_copy(t: torch.Tensor, pin: bool) -> torch.Tensor:
-    """Start copying a device tensor to the host (into pinned memory when
-    ``pin``); a CPU tensor is returned as it is."""
+def _host_copy(t: torch.Tensor, pin: bool,
+               into: torch.Tensor | None = None) -> torch.Tensor:
+    """Start copying a device tensor to the host: into the host tensor
+    ``into``, else into a new one (pinned when ``pin``); a CPU tensor is
+    returned as it is."""
     if t.device.type == "cpu":
         return t
-    out = torch.empty(t.shape, dtype=t.dtype, pin_memory=pin)
-    return out.copy_(t, non_blocking=True)
+    if into is None:
+        into = torch.empty(t.shape, dtype=t.dtype, pin_memory=pin)
+    return into.copy_(t, non_blocking=True)
 
 
 def _on(stream):
@@ -533,7 +539,14 @@ def walk_archive(archive: TrpxArchive, spec: FrameSpec):
 
 def decode(archive: TrpxArchive, dtype, *, device) -> np.ndarray:
     """Host header walk + unpack on ``device``. Returns (F, n) of
-    ``dtype``."""
+    ``dtype``.
+
+    On a card the result may be page-locked memory, lent from torch's
+    caching host allocator while the results that callers hold stay
+    within ``staging.PINNED_RESULT_BYTES``: the card copies the pixels
+    straight into it, and its block goes back to torch's cache when the
+    result and every view of it have died. Beyond that budget, and where
+    narrowing into ``dtype`` copies, the result is pageable memory."""
     dtype = np.dtype(dtype)
     meta = archive.meta
     spec = FrameSpec.for_dtype(meta.number_of_values, dtype, meta.block)
@@ -546,21 +559,28 @@ def decode(archive: TrpxArchive, dtype, *, device) -> np.ndarray:
     widths, words = walk_archive(archive, spec)
     widths = widths.astype(np.uint8)
     p = decode_dispatch(spec, torch.from_numpy(words.view(np.int32)),
-                        torch.from_numpy(widths), torch.device(device))
+                        torch.from_numpy(widths), torch.device(device),
+                        lend=True)
     return decode_collect(p, dtype)
 
 
 def decode_dispatch(spec: FrameSpec, words: torch.Tensor,
                     widths: torch.Tensor, device: torch.device,
-                    fetch: bool = True, pin: bool = False) -> InFlight:
+                    fetch: bool = True, pin: bool = False,
+                    lend: bool = False) -> InFlight:
     """Copy host ``words`` (F, W) int32 and ``widths`` (F, nb) uint8 to
     ``device`` and launch the unpack kernel there on the current stream
     (``decode_batch_tiled`` when ``spec.tiled(F)``, else
     ``decode_batch``), counting its F frames in ``frames.<wrapper>``;
-    with ``fetch``, start copying the (F, n) output
-    back (into pinned memory when ``pin``). Returns without waiting for
-    the device. From pinned host tensors the input copies are
-    asynchronous too."""
+    with ``fetch``, start copying the (F, n) output back: into pinned
+    memory when ``pin``; with ``lend`` on a card, into a pinned tensor
+    lent to the caller (``staging.RESULTS``) while the results lent stay
+    within ``staging.PINNED_RESULT_BYTES`` (counted in
+    ``results.pinned``), else into pageable memory
+    (``results.pageable``). A pinned copy counts the bytes torch had to
+    pin anew for it as ``pinned_bytes.trpx.decode.d2h``, a pageable one
+    its bytes as fresh. Returns without waiting for the device. From
+    pinned host tensors the input copies are asynchronous too."""
     with span("trpx.decode.h2d"):
         x = words.to(device, non_blocking=True)
         w = widths.to(device, non_blocking=True)
@@ -569,17 +589,32 @@ def decode_dispatch(spec: FrameSpec, words: torch.Tensor,
     with span("trpx.decode.kernel"):
         out = kernel(spec, x, w, decoded_dtype(spec))
     with span("trpx.decode.d2h") as s:
-        host = (_host_copy(out, pin),) if fetch else ()
-        if fetch and device.type != "cpu" and not pin:
-            s.fresh(out.nbytes)
+        host = ()
+        if fetch and device.type == "cpu":
+            host = (out,)
+        elif fetch:
+            before = staging.pinned_total()
+            into = None
+            if lend:
+                into = staging.RESULTS.take(out.shape, out.dtype, True,
+                                            staging.PINNED_RESULT_BYTES)
+                count("results.pageable" if into is None
+                      else "results.pinned")
+            host = (_host_copy(out, pin, into),)
+            if pin or into is not None:
+                s.pinned(staging.pinned_total() - before)
+            else:
+                s.fresh(out.nbytes)
         return _in_flight(out, host, pin, device)
 
 
 def decode_collect(p: InFlight, dtype) -> np.ndarray:
     """Wait for a :func:`decode_dispatch` with ``fetch`` and narrow its
-    output on the host: (F, n) of ``dtype``. The result may share memory
-    with the dispatch's host buffer, which nothing else reuses while the
-    result lives."""
+    output on the host: (F, n) of ``dtype``. The result is a view of the
+    dispatch's host buffer where the narrowing copies nothing (the same
+    lanes, or int32 lanes read as uint32), and nothing reuses that
+    buffer while the result or any view of it lives: a pinned one lent
+    by ``staging.RESULTS`` goes back to torch's cache only then."""
     with span("trpx.decode.d2h"):
         p.wait()
         out = p.host[0].numpy()

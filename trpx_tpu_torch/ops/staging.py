@@ -17,13 +17,21 @@ counts the bytes the host writes into its bounce buffers (rows and pad)
 as ``host_bytes.<span>``; each pinned buffer allocated counts its bytes
 once as ``pinned_bytes.<span>``, so a warm call of a shape seen before
 counts none.
+
+:class:`Lender` hands out host tensors that outlive the call, within a
+budget: the synchronous decode on a card (``ops.coding.decode``) lends
+its result from torch's caching host allocator, pinned, while the
+results that callers hold stay within :data:`PINNED_RESULT_BYTES`
+(:data:`RESULTS`).
 """
 
 from __future__ import annotations
 
 import contextlib
 import math
+import threading
 import warnings
+import weakref
 
 import numpy as np
 import torch
@@ -32,6 +40,61 @@ from ..runtime.metrics import span
 
 #: bytes of each of the two bounce buffers of an upload or fetch slot
 BOUNCE_BYTES = 32 << 20
+
+#: most bytes of pinned host memory that the results of synchronous
+#: decodes on a card may hold at once (:data:`RESULTS`); a decode whose
+#: result would pass it returns pageable memory
+PINNED_RESULT_BYTES = 1 << 30
+
+
+class Lender:
+    """Host tensors lent to callers within a budget of bytes. Each counts
+    the block torch's caching host allocator hands out for it (the
+    request rounded up to a power of two) from its allocation until its
+    memory dies with the last tensor or array that views it. The block
+    then goes back to torch's cache, where the next request of its size
+    finds it with its pages resident; a pinned block is handed out again
+    only once the copies recorded on it are done. Safe to call from
+    several threads."""
+
+    def __init__(self) -> None:
+        self._lock = threading.Lock()
+        self.lent = 0
+
+    def take(self, shape, dtype: torch.dtype, pin: bool,
+             budget: int) -> torch.Tensor | None:
+        """A new host tensor of `shape` and `dtype`, pinned when `pin`, or
+        None when its block would bring the bytes lent past `budget`."""
+        n = 1 << max(math.prod(shape) * dtype.itemsize - 1, 0).bit_length()
+        with self._lock:
+            if self.lent + n > budget:
+                return None
+            self.lent += n
+        try:
+            t = torch.empty(shape, dtype=dtype, pin_memory=pin)
+        except BaseException:
+            self._give_back(n)
+            raise
+        # the storage lives as long as any tensor or numpy array over it
+        weakref.finalize(t.untyped_storage(), self._give_back, n)
+        return t
+
+    def _give_back(self, n: int) -> None:
+        with self._lock:
+            self.lent -= n
+
+
+#: the results of synchronous decodes that callers hold
+RESULTS = Lender()
+
+
+def pinned_total() -> int:
+    """Bytes torch's caching host allocator has pinned in this process so
+    far: ``allocated_bytes.allocated`` of ``torch.cuda.host_memory_stats``,
+    which grows by each block made and not by a cached block handed out
+    again (0 where torch has no such call)."""
+    stats = getattr(torch.cuda, "host_memory_stats", None)
+    return stats().get("allocated_bytes.allocated", 0) if stats else 0
 
 
 class Staging:

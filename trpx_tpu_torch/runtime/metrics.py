@@ -169,7 +169,9 @@ def profiler_trace(log_dir: str | None):
 #: and ``pinned_bytes.<span>`` (:meth:`span.host`, :meth:`span.fresh`,
 #: :meth:`span.pinned`) and the event counters of :func:`count`
 #: (``calls.api.*``; ``frames.<kernel wrapper>``, the frames each pack
-#: and unpack wrapper took, from ``ops.coding``)
+#: and unpack wrapper took, and ``results.pinned`` / ``results.pageable``,
+#: the path of each synchronous decode's result on a card, from
+#: ``ops.coding``)
 _COUNTS: dict[str, int] = {}
 
 
@@ -191,7 +193,9 @@ class span:
     (payloads, words, width tables, pixels) and leave out those of a few
     numbers a frame (offsets, bit counts). ``s.pinned(n)`` counts the
     bytes of a pinned buffer allocated there to be kept across calls
-    (``ops.staging``), apart from both. ``tests/test_torch_trace.py``
+    (``ops.staging``), or that torch's caching host allocator had to pin
+    anew there for a decode's copy back (0 when it handed out a cached
+    block), apart from both. ``tests/test_torch_trace.py``
     holds each span's fresh bytes to the allocations that ``tracemalloc``
     and the profiler see in it."""
 
