@@ -805,8 +805,8 @@ def _profile_layers(stack: np.ndarray, arch, dev, reps: int = 3):
     compresses of `stack` and decompresses of an indexed and of a foreign
     (serial header walk) copy of `arch`. Returns (host, device): the mean
     host-clock ms of each ``trpx.*`` range of ``ops.coding`` (of the
-    foreign decode only its walk), and the device ms per call of each
-    kernel and copy on the card, by short name."""
+    foreign decode only its walk and gather), and the device ms per call
+    of each kernel and copy on the card, by short name."""
     import trpx_tpu_torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -832,8 +832,9 @@ def _profile_layers(stack: np.ndarray, arch, dev, reps: int = 3):
         for e in prof.key_averages():
             if e.key.startswith("trpx.") and e.device_type == DeviceType.CPU:
                 if run == "foreign":
-                    if e.key == "trpx.decode.walk":
-                        host["decode.walk foreign"] = e.cpu_time_total / 1e3 / reps
+                    if e.key in ("trpx.stream.walk", "trpx.stream.gather"):
+                        host[f"{e.key[5:]} foreign"] = \
+                            e.cpu_time_total / 1e3 / reps
                 else:
                     host[e.key[5:]] = e.cpu_time_total / 1e3 / reps
             elif e.device_type == DeviceType.CUDA and run != "foreign" \
@@ -1741,7 +1742,7 @@ def race_drill(dev, card: str, calls: int = RACE_CALLS) -> None:
         spec = FrameSpec.for_dtype(n, dt, block)
         name = f"{np.dtype(dt).name} block {block}"
         widths, words = walk_archive(ncodec.encode(fr, block=block), spec)
-        wd = torch.from_numpy(widths.astype(np.uint8)).to(dev)
+        wd = torch.from_numpy(widths).to(dev)
         wo = torch.from_numpy(words.view(np.int32)).to(dev)
         # the unpacks' output: uint16 for u8/u16, else the int32 bits
         want = torch.from_numpy(fr.astype(np.int64).astype(
@@ -2429,7 +2430,7 @@ def main() -> int:
                    dev)
         widths, words = walk_archive(ncodec.encode(fr, block=block), spec)
         return dict(spec=spec, x=x, odt=decoded_dtype(spec),
-                    wd=torch.from_numpy(widths.astype(np.uint8)).to(dev),
+                    wd=torch.from_numpy(widths).to(dev),
                     wo=torch.from_numpy(words.view(np.int32)).to(dev))
 
     def calls(m, tile=None):

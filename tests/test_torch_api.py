@@ -145,6 +145,38 @@ def test_routing(monkeypatch):
     assert tapi._torch_device(False) is None
 
 
+#: each device dtype -> the wider dtype whose values make its streams
+DEVICE_TARGETS = [(np.uint8, np.uint16), (np.int8, np.int16),
+                  (np.uint16, np.uint32), (np.int16, np.int32),
+                  (np.uint32, np.uint64), (np.int32, np.int64)]
+
+
+@pytest.mark.parametrize("dtype,wide", DEVICE_TARGETS)
+def test_a_stream_wider_than_the_lanes_takes_the_host_codec(
+        dtype, wide, monkeypatch):
+    """A stream whose fields fit the target's lanes (``FrameSpec.max_width``)
+    takes the card by default; one a bit wider goes to the host codec with
+    ``device=None``, card or not, and raises ValueError with a torch
+    device."""
+    spec = tcoding.FrameSpec.for_dtype(4, dtype)
+    top = 2 ** (spec.max_width - 1 if spec.signed else spec.max_width)
+    for bits, value in ((spec.max_width, top - 1),
+                        (spec.max_width + 1, top)):
+        arch = ncodec.encode(np.array([[0, 1, value, 3]], wide))
+        assert arch.meta.prolix_bits == bits
+        assert tapi._decode_ok(arch.meta, np.dtype(dtype)) == (
+            bits == spec.max_width)
+    monkeypatch.setattr(tapi.torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        trpx_tpu_torch.decompress(
+            ncodec.encode(np.array([[0, 1, top - 1, 3]], wide)), dtype=dtype)
+    np.testing.assert_array_equal(
+        trpx_tpu_torch.decompress(arch, dtype=dtype),
+        trpx_tpu_torch.decompress(arch, dtype=dtype, device=False))
+    with pytest.raises(ValueError, match="device decode unavailable"):
+        trpx_tpu_torch.decompress(arch, dtype=dtype, device="cpu")
+
+
 def test_default_device_needs_a_card(monkeypatch):
     """device=None means the card: without one, compress and decompress
     raise and name both ways to the CPU; the 4 MiB host route is gone."""

@@ -1,6 +1,7 @@
 """PyTorch port, host glue of ops/coding.py against the JAX package:
-FrameSpec, the plain plan tables, narrowing, the archive walk, the
-sidecar-table validation and its once-per-process warning. Inputs come
+FrameSpec, the plain plan tables, narrowing, the archive walk (the one
+host walk of every device decode), the sidecar-table validation and its
+once-per-process warning. Inputs come
 from numpy seeds; tolerance exact.
 """
 
@@ -25,6 +26,8 @@ from trpx_tpu_torch.native import codec as ncodec
 from trpx_tpu_torch.ops import coding as tcoding
 from trpx_tpu_torch.ops import staging
 from trpx_tpu_torch.ops.cuda_pack import plan_batch
+from trpx_tpu_torch.parallel import ShardedCodec
+from trpx_tpu_torch.runtime import stream as tstream
 
 from _torch_helpers import pad_batch
 from test_torch_pack import _any_frames, u16_frames
@@ -116,7 +119,8 @@ def test_walk_archive_matches_jax(indexed):
         # two zero words of slack past the stream for the word gather
         assert mine.size >= nbytes + 8 and not mine[nbytes:].any()
     np.testing.assert_array_equal(a.frame_index, arch.frame_index)
-    np.testing.assert_array_equal(a.width_table, widths.astype(np.uint8))
+    assert widths.dtype == a.width_table.dtype == np.uint8
+    np.testing.assert_array_equal(a.width_table, widths)
 
 
 def test_walk_uses_a_valid_sidecar_table(monkeypatch):
@@ -128,7 +132,7 @@ def test_walk_uses_a_valid_sidecar_table(monkeypatch):
         raise AssertionError("walked despite a valid width table")
 
     monkeypatch.setattr(tcoding.native, "walk_indexed", no_walk)
-    monkeypatch.setattr(tcoding.native, "walk", no_walk)
+    monkeypatch.setattr(tcoding.native, "walk_chunk", no_walk)
     w2, words2 = tcoding.walk_archive(arch, spec)
     np.testing.assert_array_equal(w2, widths)
     np.testing.assert_array_equal(words2, words)
@@ -176,6 +180,94 @@ def test_pure_python_walk_matches_native(monkeypatch):
     np.testing.assert_array_equal(words_py, words_native)
     np.testing.assert_array_equal(
         tcoding.decode(_foreign(arch), np.uint16, device="cpu"), fr)
+
+
+def _decode_by(caller, arch):
+    """``arch``'s pixels through one device decode on the CPU: ``ops.decode``,
+    ``iter_decode`` in chunks of 2 frames, or ``ShardedCodec.decode`` over
+    two CPU devices."""
+    if caller == "decode":
+        return tcoding.decode(arch, np.uint16, device="cpu")
+    if caller == "iter_decode":
+        return np.concatenate(list(tstream.iter_decode(
+            arch, np.uint16, 2, device="cpu")))
+    spec = tcoding.FrameSpec.for_dtype(arch.meta.number_of_values, np.uint16)
+    return ShardedCodec(spec, ["cpu", "cpu"]).decode(arch, np.uint16)
+
+
+#: the branch of ops.walk_chunks -> the walkers it runs
+WALKS = {"tables": set(), "offsets": {"walk_indexed"},
+         "serial": {"walk_chunk"}, "python": {"walk_frame"}}
+
+
+@pytest.mark.parametrize("caller", ["decode", "iter_decode", "sharded"])
+@pytest.mark.parametrize("walk", list(WALKS))
+def test_every_decode_takes_the_one_walker(walk, caller, tmp_path,
+                                           monkeypatch):
+    """Every device decode gets its widths and words from
+    ``ops.walk_chunks``, whichever way it walks: proven sidecar tables (no
+    walk), frame offsets only (the parallel native walk), neither (the
+    serial native walk), no native library (the pure-Python walk). The
+    uint8 widths, each frame's words and the pixels equal the JAX
+    package's ``walk_archive`` and ``decompress``, and the table left on
+    the archive is that same uint8 table."""
+    rng = np.random.default_rng(20)
+    fr = rng.poisson(3.0, (5, 1000)).astype(np.uint16)
+    fr[rng.integers(0, 5, 12), rng.integers(0, 1000, 12)] = 65535
+    src = ncodec.encode(fr)
+    blob = src.to_bytes()
+    write_trpx(src, tmp_path / "in.trpx", index=True)
+    jw, _, jwords = jcoding.walk_archive(
+        jpycodec.TrpxArchive.from_bytes(blob),
+        jcoding.FrameSpec.for_dtype(1000, np.uint16))
+    ref = japi.decompress(blob, device=False)
+    arch = (read_trpx(tmp_path / "in.trpx") if walk == "tables"
+            else TrpxArchive.from_bytes(blob))
+    if walk == "offsets":
+        arch.frame_index = src.frame_index
+    ran, seen = set(), []
+
+    def spy(name, real):
+        def call(*a, **k):
+            ran.add(name)
+            return real(*a, **k)
+        return call
+
+    for name in ("walk_indexed", "walk_chunk"):
+        monkeypatch.setattr(tcoding.native, name,
+                            spy(name, getattr(tcoding.native, name)))
+    monkeypatch.setattr(tcoding, "walk_frame",
+                        spy("walk_frame", tcoding.walk_frame))
+    if walk == "python":
+        monkeypatch.setattr(tcoding.native, "available", lambda: False)
+    dispatch = tcoding.decode_dispatch
+
+    def inputs(spec, words, widths, *a, **k):
+        seen.append((words.clone(), widths.clone()))
+        return dispatch(spec, words, widths, *a, **k)
+
+    monkeypatch.setattr(tcoding, "decode_dispatch", inputs)
+    monkeypatch.setattr(tstream, "decode_dispatch", inputs)
+    with warnings.catch_warnings():
+        warnings.filterwarnings("error", message=".*fallback at")
+        out = _decode_by(caller, arch)
+    assert ran == WALKS[walk]
+    np.testing.assert_array_equal(out, ref)
+    np.testing.assert_array_equal(out, fr)
+    widths = torch.cat([w for _, w in seen]).numpy()
+    assert widths.dtype == np.uint8
+    np.testing.assert_array_equal(widths, jw)
+    rows = [r for words, _ in seen for r in words.numpy().view(np.uint8)]
+    sizes = np.diff(np.append(src.frame_index, src.meta.memory_size))
+    assert len(rows) == len(sizes) == 5
+    for row, jrow, nbytes in zip(rows, jwords, sizes):
+        np.testing.assert_array_equal(row[:nbytes],
+                                      jrow.view(np.uint8)[:nbytes])
+        # two zero words of slack past the stream for the word gather
+        assert row.size >= nbytes + 8 and not row[nbytes:].any()
+    assert arch.width_table.dtype == np.uint8
+    np.testing.assert_array_equal(arch.width_table, jw)
+    np.testing.assert_array_equal(arch.frame_index, src.frame_index)
 
 
 def test_assemble_archive_matches_jax():

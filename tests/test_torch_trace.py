@@ -77,19 +77,21 @@ PATHS = {
          "trpx.decode.d2h", "trpx.decode.narrow", "trpx.api.consume"}),
     "decompress_batch": (
         lambda tmp: api.decompress(_blob(9), device="cpu"),
-        {"trpx.api.parse", "trpx.decode.walk", "trpx.decode.h2d",
-         "trpx.decode.kernel", "trpx.decode.d2h", "trpx.decode.narrow"}),
+        {"trpx.api.parse", "trpx.stream.buffer", "trpx.stream.walk",
+         "trpx.stream.gather", "trpx.decode.h2d", "trpx.decode.kernel",
+         "trpx.decode.d2h", "trpx.decode.narrow"}),
     "decompress_path": (
         lambda tmp: api.decompress(str(_with_sidecar(tmp, 9)),
                                    device="cpu"),
-        {"trpx.api.parse", "trpx.decode.walk", "trpx.decode.h2d",
-         "trpx.decode.kernel", "trpx.decode.d2h", "trpx.decode.narrow"}),
+        {"trpx.api.parse", "trpx.stream.buffer", "trpx.stream.walk",
+         "trpx.stream.gather", "trpx.decode.h2d", "trpx.decode.kernel",
+         "trpx.decode.d2h", "trpx.decode.narrow"}),
     "sharded": (
         lambda tmp: _sharded(9)(),
         {"trpx.stage.upload", "trpx.encode.kernel", "trpx.encode.d2h",
-         "trpx.encode.assemble", "trpx.decode.walk", "trpx.decode.h2d",
-         "trpx.decode.kernel", "trpx.decode.d2h", "trpx.stage.fetch",
-         "trpx.decode.narrow"}),
+         "trpx.encode.assemble", "trpx.stream.buffer", "trpx.stream.walk",
+         "trpx.stream.gather", "trpx.decode.h2d", "trpx.decode.kernel",
+         "trpx.decode.d2h", "trpx.stage.fetch", "trpx.decode.narrow"}),
 }
 
 
@@ -158,20 +160,25 @@ def test_encode_counts():
 
 def test_stream_decode_counts():
     F = 300
-    blob = _blob(F)
+    arch = _archive(F)
+    blob = arch.to_bytes()
     out, got = _delta(lambda: api.decompress(blob, device="cpu"))
     assert out.shape == (F, H, W)
-    size = TrpxArchive.from_bytes(blob).meta.memory_size
+    size = arch.meta.memory_size
     assert got["host_bytes.trpx.api.consume"] == F * H * W * 2
     assert got["fresh_bytes.trpx.api.consume"] == F * H * W * 2
     assert got["fresh_bytes.trpx.stream.buffer"] == size + native.SLACK
     assert got["host_bytes.trpx.stream.buffer"] == size
     # bytes handed over as they are: only the payload's slice is new
     assert got["fresh_bytes.trpx.api.parse"] == size
-    # words and widths of every chunk, pageable for a CPU device
-    gathered = got["host_bytes.trpx.stream.gather"]
-    assert gathered == got["fresh_bytes.trpx.stream.gather"]
-    assert gathered > size + F * 27
+    # the words of every chunk, pageable for a CPU device, each row two
+    # words past its chunk's longest frame; the widths are views of the
+    # walk's table
+    sizes = np.diff(np.append(arch.frame_index, size))
+    words = sum(len(c) * 4 * -(-(int(c.max()) + 8) // 4)
+                for c in (sizes[:256], sizes[256:]))
+    assert got["host_bytes.trpx.stream.gather"] == words
+    assert got["fresh_bytes.trpx.stream.gather"] == words
 
 
 def test_path_parse_counts_the_file_and_the_payload(tmp_path):

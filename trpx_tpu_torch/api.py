@@ -40,15 +40,13 @@ from .format.pycodec import TrpxArchive
 from .format.spec import DEFAULT_BLOCK
 from .io.trpx import read_trpx, subset_frames
 from .native import codec as ncodec
+from .ops import coding
 from .runtime.metrics import count, span
 
 __all__ = ["compress", "decompress", "output_dtype"]
 
 #: dtypes the kernels encode and decode
-_DEVICE_KINDS = {
-    np.dtype(np.uint8), np.dtype(np.uint16), np.dtype(np.uint32),
-    np.dtype(np.int8), np.dtype(np.int16), np.dtype(np.int32),
-}
+_DEVICE_KINDS = frozenset(coding._DEVICE_DTYPES)
 
 #: device decodes beyond this many frames stream through the chunked
 #: walk || unpack pipeline (runtime/stream.iter_decode) instead of one
@@ -128,10 +126,9 @@ def output_dtype(meta: TrpxMeta) -> np.dtype:
 
 
 def _decode_ok(meta: TrpxMeta, dtype: np.dtype) -> bool:
-    """True if the unpack kernels can decode the stream into ``dtype``."""
-    capacity = 8 * dtype.itemsize if dtype.kind in "iu" else 64
-    return (dtype in _DEVICE_KINDS
-            and meta.prolix_bits <= capacity + (1 if dtype.kind == "i" else 0))
+    """True if the unpack kernels can decode the stream into ``dtype``
+    (``ops.coding.kernel_decodes``)."""
+    return coding.kernel_decodes(dtype, meta.prolix_bits)
 
 
 def _as_archive(archive) -> TrpxArchive:

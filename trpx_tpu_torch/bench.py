@@ -143,7 +143,7 @@ def _unpack_inputs(spec: FrameSpec, arch: TrpxArchive, dev: torch.device):
     """The header walk's words and widths of `arch`, on `dev`."""
     widths, words = walk_archive(arch, spec)
     return (torch.from_numpy(words.view(np.int32)).to(dev),
-            torch.from_numpy(widths.astype(np.uint8)).to(dev))
+            torch.from_numpy(widths).to(dev))
 
 
 def _guard_archive(name: str, frames: np.ndarray, spec: FrameSpec,

@@ -180,7 +180,7 @@ def _rank_checks(rank: int, world: int, workdir: Path, dev) -> None:
     widths, words = walk_archive(tarch, tspec)
     out = decode_batch_tiled(
         tspec, torch.from_numpy(words.view(np.int32)).to(d),
-        torch.from_numpy(widths.astype(np.uint8)).to(d),
+        torch.from_numpy(widths).to(d),
         decoded_dtype(tspec), TILE_BLOCKS)
     if not np.array_equal(out.cpu().numpy(), tframes):
         raise AssertionError("tiled decode mismatch")

@@ -20,11 +20,13 @@ from .coding import (  # noqa: F401
     encode,
     encode_collect,
     encode_dispatch,
+    kernel_decodes,
     narrow_values,
     pack_kernel,
     unpack_kernel,
     validate_tables,
     walk_archive,
+    walk_chunks,
 )
 from .cuda_pack import (  # noqa: F401
     encode_batch,

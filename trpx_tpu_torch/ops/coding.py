@@ -4,8 +4,8 @@ The counterpart of ``trpx_tpu/ops/coding.py``. Encode uploads a batch,
 zero-padded to the block grid, through the calling thread's pinned bounce
 buffers (``ops.staging.upload``), runs the pack kernel on the requested
 device and assembles a byte-exact ``.trpx`` archive on the host. Decode
-walks the archive's block headers on the host (the native walker, serial
-by nature), then runs the unpack kernel. Where the JAX package routes by
+walks the archive's block headers and gathers its frames on the host
+(``walk_chunks``), then runs the unpack kernel. Where the JAX package routes by
 ``pallas_ok`` and ``pallas_ok_decode``, this one routes by what an H100
 measured (``route_sweep``): an encode of fewer than ``TILED_PACK_MAX_FRAMES``
 frames of at least ``TILED_MIN_BLOCKS`` blocks each takes the tiled pack
@@ -25,14 +25,15 @@ leaves a record of the route its frames took.
 
 Each layer of ``encode`` and ``decode`` runs in a span
 (``runtime.metrics.span``: ``trpx.encode.h2d``, ``.kernel``, ``.d2h``,
-``.assemble``; ``trpx.decode.walk``, ``.h2d``, ``.kernel``,
-``.d2h``, ``.narrow``), so a ``torch.profiler`` window over
-``compress``/``decompress`` times the path by layer, and the spans count
-the host bytes they write and allocate. ``assemble`` and ``walk`` open in
-:func:`assemble_archive` and :func:`walk_archive`, so every caller of
-those gets them. The kernel spans time the launches only: the D2H spans
-wait for the kernels, whose device time the profiler reports on its
-own.
+``.assemble``; ``trpx.stream.buffer``, ``.walk``, ``.gather``;
+``trpx.decode.h2d``, ``.kernel``, ``.d2h``, ``.narrow``), so a
+``torch.profiler`` window over ``compress``/``decompress`` times the path
+by layer, and the spans count the host bytes they write and allocate.
+``assemble`` opens in :func:`assemble_archive`, the buffer, walk and
+gather spans in :func:`walk_chunks`, the one host walk of every device
+decode, so every caller of those gets them. The kernel spans time the
+launches only: the D2H spans wait for the kernels, whose device time the
+profiler reports on its own.
 
 Both are a dispatch half and a collect half (``encode_dispatch`` /
 ``encode_collect``, ``decode_dispatch`` / ``decode_collect``): dispatch
@@ -190,6 +191,14 @@ class FrameSpec:
         if spec.worst_bits >= 2**31:
             raise ValueError("frame too large for 32-bit bit offsets")
         return spec
+
+
+def kernel_decodes(dtype, prolix_bits: int) -> bool:
+    """True if the unpack kernels can decode a stream whose fields are at
+    most ``prolix_bits`` wide into ``dtype``: a device dtype whose lanes
+    hold that field (``FrameSpec.max_width``)."""
+    dtype = np.dtype(dtype)
+    return dtype in _DEVICE_DTYPES and prolix_bits <= _DEVICE_DTYPES[dtype][1]
 
 
 def pack_kernel(spec: FrameSpec, frames: int):
@@ -441,105 +450,136 @@ def validate_tables(spec: FrameSpec, meta, wtab: np.ndarray,
             "(stale or crafted sidecar)")
 
 
-def walk_archive(archive: TrpxArchive, spec: FrameSpec):
-    """Serial decode prepass for a whole archive: per-block width tables
-    and per-frame uint32 word buffers.
+#: the walk that replaces a rejected sidecar table, by warning site
+_REWALK = {"ops.sidecar_tables": "revalidating header walk",
+           "stream.sidecar_tables": "revalidating chunked header walk"}
 
-    Uses the native C++ walker when available, else the pure-Python walk.
-    A sidecar width table that passes :func:`validate_tables` skips the
-    walk. Returns (widths (F, nb) int32, words (F, W) uint32), where every
-    row keeps at least two zero words after its stream: the unpack reads
-    the word after each field's first word. The walk is cached on the
-    archive (``width_table``, ``frame_index``), so a repeat decode of the
-    same object is walk-free. Runs in the span ``trpx.decode.walk``,
-    which counts the padded payload, the tables and the words it writes,
-    each allocated anew.
+
+def walk_chunks(archive: TrpxArchive, spec: FrameSpec, C: int, pin: bool,
+                site: str = "ops.sidecar_tables"):
+    """The host half of every device decode: yields (nf, words, widths)
+    host tensors for consecutive runs of at most ``C`` frames. ``words``
+    (nf, W) int32 holds each frame's stream and at least two zero words
+    past it (the unpack reads the word after each field's first),
+    ``widths`` (nf, nb) uint8 its block widths; both pinned when ``pin``,
+    else ``widths`` is a view of the archive's width table.
+
+    The payload's padded copy (the bit reader's slack) is made once, in
+    the span ``trpx.stream.buffer``, and kept on the archive. Tables that
+    :func:`validate_tables` proves are sliced, not walked; a rejected one
+    warns once at ``site`` and both tables are distrusted. Else each run
+    is walked in the span ``trpx.stream.walk``: natively over the
+    archive's frame offsets in parallel where it has them, natively from
+    where the last run ended where not, by the pure-Python walk without
+    the native library. The walk's int32 rows are narrowed into one
+    (F, nb) uint8 table, left on the archive with the frame starts
+    (``width_table``, ``frame_index``) once the last run is walked. Each
+    run's frames are gathered in ``trpx.stream.gather``. Each span counts
+    the host bytes it writes and allocates.
     """
-    with span("trpx.decode.walk") as s:
-        meta = archive.meta
-        F, nb = meta.number_of_frames, spec.nb
-        payload = archive.payload
-        widths = np.empty((F, nb), dtype=np.int32)
-        have_native = native.available()
-        if have_native:
-            # the padded copy of the payload (bit-reader slack) is a full
-            # memcpy: cache it on the archive across walks
-            buf = getattr(archive, "_padded_buf", None)
-            if buf is None:
-                buf = native.padded_buffer(payload)
-                archive._padded_buf = buf
-                if buf is not payload:
-                    s.fresh(buf.nbytes)
-                    s.host(len(payload))
-        wtab = getattr(archive, "width_table", None)
-        fidx0 = getattr(archive, "frame_index", None)
-        if wtab is not None and fidx0 is not None and wtab.shape == (F, nb):
-            starts = np.asarray(fidx0, dtype=np.int64)
-            ends = np.concatenate([starts[1:], [meta.memory_size]])
-            try:
-                validate_tables(spec, meta, wtab, starts, ends)
-            except ValueError as e:
-                # distrust both tables and walk the stream instead
-                warn_once("ops.sidecar_tables", e, "revalidating header walk")
-                wtab = fidx0 = None
-        else:
-            wtab = None
-        if wtab is not None:
-            widths[:] = wtab
-        elif have_native and fidx0 is not None:
-            starts = np.asarray(fidx0, dtype=np.int64)
-            native.walk_indexed(buf, starts, meta.number_of_values, meta.block,
-                                want_poffs=False, out_widths=widths,
-                                max_width=meta.prolix_bits)
-            ends = np.concatenate([starts[1:], [meta.memory_size]])
-        elif have_native:
-            _w, _o, fstarts = native.walk(buf, F, meta.number_of_values,
-                                          meta.block, want_poffs=False,
-                                          out_widths=widths,
-                                          max_width=meta.prolix_bits)
-            starts, ends = fstarts[:-1], fstarts[1:]
-        else:
-            starts = np.zeros(F, dtype=np.int64)
-            ends = np.zeros(F, dtype=np.int64)
-            pos = 0
-            for f in range(F):
-                w, _o, nxt = walk_frame(payload, pos, meta.number_of_values,
-                                        meta.block)
-                widths[f] = w
-                starts[f], ends[f] = pos, nxt
-                pos = nxt
-            if F and int(widths.max()) > meta.prolix_bits:
-                raise ValueError(
-                    f"corrupt TRPX payload: block width {int(widths.max())}"
-                    f" exceeds the header's prolix_bits={meta.prolix_bits}")
-        if wtab is None:
-            # every branch above proved widths <= prolix_bits
-            archive.width_table = widths.astype(np.uint8)
-            archive.frame_index = np.asarray(starts, dtype=np.int64)
-        max_bytes = int(np.max(ends - starts)) if F else 1
-        cap_words = -(-(max_bytes + 8) // 4)
-        if have_native:
-            # the C gather copies each frame and zeroes the rest of its row
-            words = np.empty((F, cap_words), dtype=np.uint32)
-            byte_view = words.view(np.uint8)
-            native.gather_frames(buf, starts, ends, byte_view)
-        else:
-            words = np.zeros((F, cap_words), dtype=np.uint32)
-            byte_view = words.view(np.uint8)
-            raw = np.frombuffer(payload, dtype=np.uint8)
-            for f in range(F):
-                chunk = raw[starts[f] : ends[f]]
-                byte_view[f, : len(chunk)] = chunk
-        # the int32 widths, their uint8 table when walked, the words
-        tables = widths.nbytes + (widths.size if wtab is None else 0)
-        s.fresh(tables + words.nbytes)
-        s.host(tables + words.nbytes)
-        return widths, words
+    meta = archive.meta
+    F, nb = meta.number_of_frames, spec.nb
+    have_native = native.available()
+    buf = getattr(archive, "_padded_buf", None)
+    if buf is None:
+        with span("trpx.stream.buffer") as s:
+            buf = archive._padded_buf = native.padded_buffer(archive.payload)
+            if buf is not archive.payload:
+                s.fresh(buf.nbytes)
+                s.host(len(archive.payload))
+    plen = buf.shape[0] - native.SLACK
+    table = getattr(archive, "width_table", None)
+    starts = getattr(archive, "frame_index", None)
+    if starts is not None:
+        starts = np.asarray(starts, np.int64)
+        ends = np.append(starts[1:], meta.memory_size)
+    if table is not None and starts is not None and table.shape == (F, nb):
+        try:
+            validate_tables(spec, meta, table, starts, ends)
+        except ValueError as e:
+            # stale or crafted: distrust both tables and walk the stream
+            warn_once(site, e, _REWALK[site])
+            table = starts = None
+    else:
+        table = None
+    walked = table is None
+    indexed = walked and have_native and starts is not None
+    if walked and not indexed:
+        starts, ends = np.empty(F, np.int64), np.empty(F, np.int64)
+    pos = 0
+    for lo in range(0, F, C):
+        hi = min(F, lo + C)
+        with span("trpx.stream.walk") as s:
+            if lo == 0 and walked:
+                table = np.empty((F, nb), np.uint8)
+                s.fresh(table.nbytes)
+            elif lo == 0:
+                # torch views writable memory only: a read-only sidecar
+                # table is copied
+                given, table = table, np.require(table, np.uint8, "CW")
+                if table is not given:
+                    s.fresh(table.nbytes)
+                    s.host(table.nbytes)
+            if indexed:
+                rows, _ = native.walk_indexed(
+                    buf, starts[lo:hi], spec.n, spec.block,
+                    want_poffs=False, max_width=meta.prolix_bits)
+            elif walked and have_native:
+                rows, _, fst = native.walk_chunk(
+                    buf, pos, hi - lo, spec.n, spec.block,
+                    max_width=meta.prolix_bits)
+                starts[lo:hi], ends[lo:hi] = pos + fst[:-1], pos + fst[1:]
+                pos = int(ends[hi - 1])
+            elif walked:
+                rows = np.empty((hi - lo, nb), np.int32)
+                for f in range(lo, hi):
+                    rows[f - lo], _, nxt = walk_frame(
+                        archive.payload, pos, spec.n, spec.block)
+                    starts[f], ends[f], pos = pos, nxt, nxt
+                # the native walkers' check of the widest block
+                native._check_width(int(rows.max()), meta.prolix_bits)
+            if walked:
+                # every branch proved the rows within prolix_bits
+                table[lo:hi] = rows
+                s.fresh(rows.nbytes)
+                s.host(rows.nbytes + rows.size)
+        with span("trpx.stream.gather") as s:
+            st, en = starts[lo:hi], ends[lo:hi]
+            cap_words = -(-(int((en - st).max()) + 8) // 4)
+            words = torch.empty((hi - lo, cap_words), dtype=torch.int32,
+                                pin_memory=pin)
+            byte_rows = words.numpy().view(np.uint8)
+            en = np.minimum(en, plen)
+            if have_native:
+                native.gather_frames(buf, st, en, byte_rows)
+            else:
+                for row, a, b in zip(byte_rows, st, en):
+                    row[: b - a] = buf[a:b]
+                    row[b - a :] = 0
+            widths = torch.from_numpy(table[lo:hi])
+            if pin:
+                widths = widths.pin_memory()
+            gathered = words.nbytes + (widths.nbytes if pin else 0)
+            s.host(gathered)
+            if not pin:
+                s.fresh(gathered)
+        yield hi - lo, words, widths
+    if walked:
+        archive.width_table, archive.frame_index = table, starts
+
+
+def walk_archive(archive: TrpxArchive, spec: FrameSpec):
+    """The whole archive as one run of :func:`walk_chunks`: (widths
+    (F, nb) uint8, words (F, W) uint32) numpy arrays, unpinned. The
+    widths are the archive's width table itself, not a copy."""
+    (_, words, widths), = walk_chunks(archive, spec,
+                                      archive.meta.number_of_frames, False)
+    return widths.numpy(), words.numpy().view(np.uint32)
 
 
 def decode(archive: TrpxArchive, dtype, *, device) -> np.ndarray:
-    """Host header walk + unpack on ``device``. Returns (F, n) of
-    ``dtype``.
+    """Host header walk (:func:`walk_chunks`, one run) + unpack on
+    ``device``. Returns (F, n) of ``dtype``.
 
     On a card the result may be page-locked memory, lent from torch's
     caching host allocator while the results that callers hold stay
@@ -550,17 +590,15 @@ def decode(archive: TrpxArchive, dtype, *, device) -> np.ndarray:
     dtype = np.dtype(dtype)
     meta = archive.meta
     spec = FrameSpec.for_dtype(meta.number_of_values, dtype, meta.block)
-    if meta.prolix_bits > spec.max_width:
+    if not kernel_decodes(dtype, meta.prolix_bits):
         # stream fields wider than the target's lanes: the host codec
         # implements the reference's clamp semantics at C speed
         if native.available():
             return ncodec.decode(archive, dtype)
         return pycodec.decode(archive, dtype)
-    widths, words = walk_archive(archive, spec)
-    widths = widths.astype(np.uint8)
-    p = decode_dispatch(spec, torch.from_numpy(words.view(np.int32)),
-                        torch.from_numpy(widths), torch.device(device),
-                        lend=True)
+    (_, words, widths), = walk_chunks(archive, spec, meta.number_of_frames,
+                                      False)
+    p = decode_dispatch(spec, words, widths, torch.device(device), lend=True)
     return decode_collect(p, dtype)
 
 

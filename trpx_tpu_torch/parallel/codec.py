@@ -28,14 +28,14 @@ associative reduction. So:
   table every process derives each frame's absolute byte offset with one
   exclusive int64 cumsum, so each writes its frames into the shared file
   on its own (``parallel/distributed.py``);
-* decode is the host's serial header walk, then the unpack of each local
-  device's frame shard.
+* decode is the host's header walk (``ops.walk_archive``), then the
+  unpack of each local device's frame shard.
 
 Each host step runs in a span (``runtime.metrics.span``): the uploads
 in ``trpx.stage.upload``, the collect in ``trpx.encode.d2h``, the
-assembly in ``trpx.encode.assemble``, the walk in ``trpx.decode.walk``,
-the pixels' way back in ``trpx.stage.fetch`` and their narrowing in
-``trpx.decode.narrow``, as on one card.
+assembly in ``trpx.encode.assemble``, the walk in ``trpx.stream.buffer``,
+``.walk`` and ``.gather``, the pixels' way back in ``trpx.stage.fetch``
+and their narrowing in ``trpx.decode.narrow``, as on one card.
 
 Without an initialized process group the world is this process. What the
 JAX package sizes for TPU memory or lane layout (measured capacity

@@ -36,9 +36,7 @@ import torch
 
 from .. import api as _api
 from .. import native
-from .._fallback import warn_once
 from ..format.header import TrpxMeta, emit_header
-from ..format.pycodec import TrpxArchive
 from ..format.spec import DEFAULT_BLOCK, frame_nbytes
 from ..io.trpx import write_index
 from ..ops.coding import (
@@ -48,8 +46,8 @@ from ..ops.coding import (
     decode_dispatch,
     encode_collect,
     encode_dispatch,
-    validate_tables,
-    walk_archive,
+    kernel_decodes,
+    walk_chunks,
 )
 from ..ops.staging import Staging
 from .metrics import span
@@ -394,13 +392,12 @@ def iter_decode(archive, dtype, chunk_frames: int = 256, device=None,
     codec (one ``api.decompress`` per chunk), as does None for a target
     the kernels cannot hold.
 
-    Pipelined: chunk k+1 is walked (the native header walk, or sidecar
-    tables proven with ``validate_tables``), gathered into a word buffer
-    (pinned on CUDA), copied to the device and unpacked on a side stream,
-    and its copy back into pinned memory started, before chunk k is
-    yielded, so the serial walk overlaps the device. Each archive is
-    walked once: when it had no usable tables, the walk's tables are left
-    on it as ``width_table`` and ``frame_index`` when the loop ends.
+    Pipelined: chunk k+1 is walked and gathered (``ops.walk_chunks``,
+    into pinned memory on CUDA), copied to the device and unpacked on a
+    side stream, and its copy back into pinned memory started, before
+    chunk k is yielded, so the host walk overlaps the device. Each archive
+    is walked once: when it had no usable tables, the walk's tables are
+    left on it as ``width_table`` and ``frame_index`` when the loop ends.
 
     ``fetch=False`` (pipeline only; raises ValueError on the host branch)
     yields ``(out, nf)`` pairs instead: ``out`` the (nf, n) decode on the
@@ -414,7 +411,8 @@ def iter_decode(archive, dtype, chunk_frames: int = 256, device=None,
     meta = archive.meta
     F, n = meta.number_of_frames, meta.number_of_values
     C = min(chunk_frames, F)
-    dev = _api._route(device, _api._decode_ok(meta, dtype))
+    kernel_ok = kernel_decodes(dtype, meta.prolix_bits)
+    dev = _api._route(device, kernel_ok)
     if dev is None:
         if not fetch:
             raise ValueError("fetch=False requires the device pipeline "
@@ -425,13 +423,13 @@ def iter_decode(archive, dtype, chunk_frames: int = 256, device=None,
             yield np.asarray(out).reshape(-1, n)
         return
     spec = FrameSpec.for_dtype(n, dtype, meta.block)
-    if meta.prolix_bits > spec.max_width:
+    if not kernel_ok:
         raise ValueError(
             f"device decode unavailable for dtype {dtype} with "
             f"prolix_bits={meta.prolix_bits}")
     stream = torch.cuda.Stream(dev) if dev.type == "cuda" else None
-    chunks = (_native_chunks(archive, spec, C, pin=stream is not None)
-              if native.available() else _walked_chunks(archive, spec, C))
+    chunks = walk_chunks(archive, spec, C, pin=stream is not None,
+                         site="stream.sidecar_tables")
 
     def drain(pending):
         p, nf, _inputs = pending
@@ -456,91 +454,3 @@ def iter_decode(archive, dtype, chunk_frames: int = 256, device=None,
         pending = (p, nf, (words, widths))
     if pending is not None:
         yield drain(pending)
-
-
-def _native_chunks(archive: TrpxArchive, spec: FrameSpec, C: int,
-                   pin: bool):
-    """(nf, words, widths) host tensors of each chunk: (nf, W) int32 words
-    gathered from the payload (at least two zero words past every
-    frame's stream; the unpack reads the word after each field's first)
-    and (nf, nb) uint8 widths, pinned when ``pin``. Takes the archive's
-    tables when they prove valid, else walks chunk by chunk and leaves the
-    walk's tables on the archive at the end. The payload's padded copy
-    runs in the span ``trpx.stream.buffer``, each chunk's walk (and the
-    table it leaves) in ``trpx.stream.walk`` and its gather in
-    ``trpx.stream.gather``; each counts the host bytes it writes and
-    allocates."""
-    meta = archive.meta
-    F, n = meta.number_of_frames, meta.number_of_values
-    with span("trpx.stream.buffer") as s:
-        buf = native.padded_buffer(archive.payload)
-        if buf is not archive.payload:
-            s.fresh(buf.nbytes)
-            s.host(len(archive.payload))
-    payload_len = buf.shape[0] - native.SLACK
-    wtab = getattr(archive, "width_table", None)
-    fidx = getattr(archive, "frame_index", None)
-    have_tables = (wtab is not None and fidx is not None
-                   and len(fidx) == F and wtab.shape == (F, spec.nb))
-    if have_tables:
-        fidx = np.asarray(fidx, np.int64)
-        ends_all = np.concatenate([fidx[1:], [meta.memory_size]])
-        try:
-            validate_tables(spec, meta, wtab, fidx, ends_all)
-        except ValueError as e:
-            # stale or crafted tables: distrust both and walk
-            warn_once("stream.sidecar_tables", e,
-                      "revalidating chunked header walk")
-            have_tables = False
-    pos = 0
-    for lo in range(0, F, C):
-        nf = min(C, F - lo)
-        if have_tables:
-            starts = fidx[lo : lo + nf]
-            ends = ends_all[lo : lo + nf]
-            widths_c = wtab[lo : lo + nf]
-        else:
-            with span("trpx.stream.walk") as s:
-                if lo == 0:
-                    acc_w = np.empty((F, spec.nb), np.uint8)
-                    acc_off = np.empty(F, np.int64)
-                    s.fresh(acc_w.nbytes)
-                widths_c, _poffs, fstarts = native.walk_chunk(
-                    buf, pos, nf, n, spec.block, max_width=meta.prolix_bits)
-                starts = pos + fstarts[:nf]
-                ends = pos + fstarts[1:]
-                acc_w[lo : lo + nf] = widths_c
-                acc_off[lo : lo + nf] = starts
-                pos = int(ends[-1])
-                # the walker's int32 widths, and their rows of the table
-                s.fresh(widths_c.nbytes)
-                s.host(widths_c.nbytes + widths_c.size)
-        with span("trpx.stream.gather") as s:
-            cap_words = -(-(int((ends - starts).max()) + 8) // 4)
-            words = torch.empty((nf, cap_words), dtype=torch.int32,
-                                pin_memory=pin)
-            native.gather_frames(buf, starts, np.minimum(ends, payload_len),
-                                 words.numpy().view(np.uint8))
-            widths = torch.empty((nf, spec.nb), dtype=torch.uint8,
-                                 pin_memory=pin)
-            widths.numpy()[:] = widths_c
-            gathered = words.nbytes + widths.nbytes
-            s.host(gathered)
-            if not pin:
-                s.fresh(gathered)
-        yield nf, words, widths
-    if not have_tables:
-        archive.width_table = acc_w
-        archive.frame_index = acc_off
-
-
-def _walked_chunks(archive: TrpxArchive, spec: FrameSpec, C: int):
-    """Without the native walker: one whole walk (``ops.walk_archive``,
-    which leaves its tables on the archive), then its rows chunk by
-    chunk."""
-    widths, words = walk_archive(archive, spec)
-    words = torch.from_numpy(words.view(np.int32))
-    widths = torch.from_numpy(widths.astype(np.uint8))
-    for lo in range(0, archive.meta.number_of_frames, C):
-        yield (min(C, len(words) - lo), words[lo : lo + C],
-               widths[lo : lo + C])
