@@ -177,8 +177,34 @@ the tiled unpack. Phases, one line each (more for phases 5 and 6):
    kernels line; those of the timing loops and of the scaling tool do
    not.
 
+13. the header walk of one frame on the card (``csrc/walk.cu``,
+   ``ops.cuda_walk``): (a) the kernels against their plain version on the
+   card (rounds, header count, widths, end, widest block) and against the
+   host walk (``native.walk_chunk``) at the shape of an EIGER2 X 16M image
+   (4362x4148 u32 on its module grid, ``tools.walk_bench.gapped_image``)
+   and at 2048x2048 u32, at 2,048-bit parts and at ``WALK_BITS``; (b)
+   phase 11(a)'s hostile corpus rebuilt on one u16 frame of
+   ``WALK_ON_CARD_MIN_BLOCKS`` blocks and more (``WALK_CORPUS_VALUES``),
+   through ``decompress`` on the card, each outcome (pixels, or the error
+   class and message) and each archive's tables equal to those of the same
+   decode walked on the host (the constant raised), no fallback warning;
+   (c) the walk's kernels' device time per call (``torch.profiler``) at the
+   image's shape beside its bound (payload in, a byte a block out, over
+   3.35 TB/s) and its plain version's time; (d) ``WALK_IMAGES`` such
+   images through ``decompress``: each walked on the card
+   (``walks.card``), none at the round cap (``walks.unsynced``), the
+   rounds an image (``walks.sync_rounds``) and the most an image took
+   beside ``WALK_ROUND_CAP``, the pixels exact, the launch counters set to
+   0 just before and read just after: one tiled unpack an image, and at
+   least one walk launch (a batch of rounds) an image. The launches of (a)
+   to (c) are checks, not traffic, and are not counted: the kernels line's
+   walk entry gives (d)'s walk launches and (a)'s largest difference of
+   the kernels' widths from the plain version's and the host walk's, and
+   (d)'s tiled unpacks join ``unpack_tiled``'s.
+
 ``python3 chip_smoke.py --sharded [a|b]`` builds the kernels and runs
-phase 12 alone (or only its part a or b).
+phase 12 alone (or only its part a or b); ``--walk`` builds them and runs
+phase 13 alone.
 
 It then prints the card line, a JSON line of per-kernel results and, last,
 ``{"ok": true, "device": {...}}``. Any failure exits non-zero before that
@@ -265,6 +291,10 @@ SHARD_REPS = 3
 #: overlap check: ~0.54 s at the H100's 1.98 GHz, far longer than the
 #: dispatch loop's host work
 OVERLAP_SPIN_CYCLES = 1 << 30
+#: phase 13: values of the hostile corpus's one-frame base (u16, at least
+#: WALK_ON_CARD_MIN_BLOCKS blocks), and the images whose rounds it counts
+WALK_CORPUS_VALUES = 2_000_000
+WALK_IMAGES = 16
 #: device memory rate of an H100 SXM (NVIDIA's data sheet), for the bounds
 HBM_BYTES_PER_S = 3.35e12
 DTYPES = (np.uint8, np.int8, np.uint16, np.int16, np.uint32, np.int32)
@@ -2344,6 +2374,231 @@ def _sharded_only(parts: str = "ab") -> int:
     return 0
 
 
+def walk_phase(dev, card: str) -> dict:
+    """Phase 13 (module docstring): the header walk of one frame on the
+    card. Returns the kernels line's walk entry."""
+    import warnings
+
+    import trpx_tpu_torch
+    from trpx_tpu_torch import _fallback, native
+    from trpx_tpu_torch.format.pycodec import TrpxArchive
+    from trpx_tpu_torch.native import codec as ncodec
+    from trpx_tpu_torch.ops import FrameSpec, coding, cuda_walk
+    from trpx_tpu_torch.ops.cuda_walk import (
+        upload_stream,
+        walk_frame,
+        walk_frame_plain,
+    )
+    from trpx_tpu_torch.tools import walk_bench
+
+    t0 = time.perf_counter()
+
+    def same(got, want, what):
+        a = (got.rounds, got.headers, got.wmax, got.end_bit)
+        b = (want.rounds, want.headers, want.wmax, want.end_bit)
+        if a != b:
+            raise AssertionError(f"walk kernel != plain on {what}: {a} vs "
+                                 f"{b}")
+        k = min(got.headers, got.widths.shape[1])
+        e = _diff(got.widths[:, :k], want.widths[:, :k])
+        if e:
+            raise AssertionError(f"walk kernel != plain widths on {what}: "
+                                 f"off by up to {e}")
+        return e
+
+    # (a) kernel == plain == host walk
+    frames = {"4362x4148 u32 gapped": walk_bench.gapped_image(seed=1),
+              "2048x2048 u32": walk_bench.synth(1, 2048 * 2048, np.uint32,
+                                                HOT_U32, seed=3)}
+    rounds_a, err = {}, 0
+    for name, fr in frames.items():
+        arch = ncodec.encode(fr)
+        spec = FrameSpec.for_dtype(fr.shape[1], np.uint32)
+        P = arch.meta.memory_size
+        words = upload_stream(arch.payload, dev)
+        rows, _, fst = native.walk_chunk(native.padded_buffer(arch.payload),
+                                         0, 1, spec.n, spec.block,
+                                         max_width=32)
+        bits = cuda_walk.WALK_BITS
+        try:
+            for L in (2048, bits):
+                cuda_walk.WALK_BITS = L
+                got = walk_frame(spec, words, P)
+                if got.rounds is None:
+                    raise AssertionError(f"walk of {name} in {L}-bit parts "
+                                         f"did not converge")
+                err = max(err, same(got, walk_frame_plain(spec, words, P),
+                                    f"{name} L={L}"))
+                e = _diff(got.widths.cpu().to(torch.int32),
+                          torch.from_numpy(rows))
+                err = max(err, e)
+                if (e or got.wmax != rows.max()
+                        or 1 + got.end_bit // 8 != fst[1]):
+                    raise AssertionError(f"walk kernel != host walk on "
+                                         f"{name}: widths off by up to {e}")
+                rounds_a[f"{name} L={L}"] = got.rounds
+        finally:
+            cuda_walk.WALK_BITS = bits
+    print(f"phase 13 (a) walk kernel == plain == host walk ({card}); "
+          f"rounds {rounds_a}; widths off by at most {err}", flush=True)
+
+    # (b) the hostile corpus on one frame above the crossover
+    rng = np.random.default_rng(SEED)
+    n = max(WALK_CORPUS_VALUES, 12 * coding.WALK_ON_CARD_MIN_BLOCKS)
+    base_fr = rng.poisson(3.0, (1, n)).astype(np.uint16)
+    base_fr[0, rng.integers(0, n, 40)] = 65535
+    base = ncodec.encode(base_fr).to_bytes()
+    keep = coding.WALK_ON_CARD_MIN_BLOCKS
+    kinds: dict = {}
+    walked = {"card": 0, "host": 0}
+    saved = set(_fallback._seen)
+    _fallback._seen.clear()
+    try:
+        with warnings.catch_warnings():
+            warnings.filterwarnings("error", message=".*fallback at")
+            for kind, blob in hostile_corpus(base):
+                outs = []
+                for route, floor in (("card", keep), ("host", 10**12)):
+                    coding.WALK_ON_CARD_MIN_BLOCKS = floor
+                    before = dict(_count_walks())
+                    got = _said(lambda: trpx_tpu_torch.decompress(blob))
+                    a = None
+                    try:
+                        a = TrpxArchive.from_bytes(blob)
+                        coding.decode(a, np.uint16, device=dev)
+                    except OK_ERRORS:
+                        pass
+                    walked[route] += (_count_walks()["walks.card"]
+                                      - before["walks.card"])
+                    outs.append((got, a))
+                (got, a), (want, b) = outs
+                if _said_digest(got) != _said_digest(want):
+                    raise AssertionError(f"walk corpus {kind}: card walk "
+                                         f"{_said_digest(got)} != host walk "
+                                         f"{_said_digest(want)}")
+                ta = getattr(a, "width_table", None)
+                tb = getattr(b, "width_table", None)
+                if (ta is None) != (tb is None) or (
+                        ta is not None and not (
+                            np.array_equal(ta, tb)
+                            and np.array_equal(a.frame_index,
+                                               b.frame_index))):
+                    raise AssertionError(f"walk corpus {kind}: the card "
+                                         f"walk's tables differ")
+                k = "ok" if not isinstance(got, tuple) else got[0].__name__
+                kinds[f"{kind} {k}"] = kinds.get(f"{kind} {k}", 0) + 1
+    finally:
+        coding.WALK_ON_CARD_MIN_BLOCKS = keep
+        _fallback._seen.clear()
+        _fallback._seen.update(saved)
+    if walked["host"] or not walked["card"]:
+        raise AssertionError(f"walk corpus routes: {walked}")
+    print(f"phase 13 (b) hostile corpus of 1 x {n} u16 "
+          f"({FrameSpec.for_dtype(n, np.uint16).nb} blocks; {card}): card "
+          f"walk == host walk on every outcome and table; {walked['card']} "
+          f"card walks; {kinds}", flush=True)
+
+    # (c) the kernels' device time at the image's shape, beside the bound
+    fr = frames["4362x4148 u32 gapped"]
+    arch = ncodec.encode(fr)
+    spec = FrameSpec.for_dtype(fr.shape[1], np.uint32)
+    P = arch.meta.memory_size
+    words = upload_stream(arch.payload, dev)
+    call = lambda: walk_frame(spec, words, P)  # noqa: E731
+    ms = walk_bench._walk_device_ms(call, 10)
+    launches = _launch_ms(call, 10)
+    host_ms = walk_bench._median_ms(call, 10)
+    t = time.perf_counter()
+    walk_frame_plain(spec, words, P)
+    torch.cuda.synchronize()
+    plain_ms = 1e3 * (time.perf_counter() - t)
+    io = (P, spec.nb)
+    print(f"phase 13 (c) walk ({card}) at 4362x4148 u32 gapped: {ms} ms "
+          f"device, {host_ms} ms host clock a walk, bytes in {io[0]} out "
+          f"{io[1]}, bound {_bound_ms(sum(io))} ms, plain {plain_ms} ms; "
+          f"by launch (ms a call) " + ", ".join(
+              f"{k} {v:.4f}" for k, v in launches.items()), flush=True)
+
+    # (d) the images of a decompress_image cell through decompress: the
+    # card walks each (walks.card), within the cap (walks.unsynced 0), in
+    # walks.sync_rounds rounds
+    from trpx_tpu_torch.runtime import metrics
+
+    blobs = [(img, ncodec.encode(img, dimensions=(4148, 4362)).to_bytes())
+             for img in (walk_bench.gapped_image(seed=100 + seed)
+                         for seed in range(WALK_IMAGES))]
+    names = ("walks.card", "walks.sync_rounds", "walks.unsynced")
+    before = metrics.counters()
+    most = 0
+    _zero_counts()
+    walk_frame.launches = 0
+    for seed, (img, blob) in enumerate(blobs):
+        r = metrics.counters().get("walks.sync_rounds", 0)
+        got = trpx_tpu_torch.decompress(blob)
+        most = max(most, metrics.counters().get("walks.sync_rounds", 0) - r)
+        if not np.array_equal(got.reshape(-1), img[0]):
+            raise AssertionError(f"image {seed} decoded to other pixels")
+    counts = _read_counts()
+    walks = walk_frame.launches
+    c = {k: metrics.counters().get(k, 0) - before.get(k, 0) for k in names}
+    print(f"phase 13 (d) {WALK_IMAGES} 4362x4148 u32 gapped images through "
+          f"decompress ({card}): {c}, "
+          f"{c['walks.sync_rounds'] / WALK_IMAGES} rounds an image, at most "
+          f"{most} of a cap of {cuda_walk.WALK_ROUND_CAP}, at "
+          f"{cuda_walk.WALK_BITS}-bit parts; launches: walk {walks}, "
+          f"{counts}; {time.perf_counter() - t0:.1f} s", flush=True)
+    if c["walks.card"] != WALK_IMAGES or c["walks.unsynced"]:
+        raise AssertionError(f"the images' walks: {c}")
+    if counts != {**dict.fromkeys(counts, 0), "unpack_tiled": WALK_IMAGES} \
+            or walks < WALK_IMAGES:
+        raise AssertionError(f"the images' launches: walk {walks}, {counts}")
+    entry = {"name": "walk", "route": "cuda",
+             "source": "trpx_tpu_torch/csrc/walk.cu", "replaces": None,
+             "shape": "1x4362x4148 u32 gapped", "launches": walks,
+             "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+             "bound_ms": _bound_ms(sum(io)), "bound_by": "bytes",
+             "library_ms": None}
+    return entry, counts
+
+
+def _said(fn):
+    """:func:`_outcome` with the error's message: (class, message)."""
+    try:
+        return np.asarray(fn())
+    except OK_ERRORS as e:
+        return (type(e), str(e))
+
+
+def _said_digest(outcome) -> str:
+    if isinstance(outcome, tuple):
+        return f"{outcome[0].__name__}: {outcome[1]}"
+    return _digest(outcome)
+
+
+def _count_walks() -> dict:
+    from trpx_tpu_torch.runtime import metrics
+
+    c = metrics.counters()
+    return {k: c.get(k, 0) for k in ("walks.card", "walks.unsynced")}
+
+
+def _walk_only() -> int:
+    """``--walk``: build the kernels and run phase 13 alone."""
+    from trpx_tpu_torch import _build
+
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        check=True, capture_output=True, text=True).stdout.strip()
+    cxx = os.environ.get("CXX")
+    if cxx and not _builds_openmp(cxx):
+        del os.environ["CXX"]
+    _build.build()
+    _build.load()
+    entry, _ = walk_phase(torch.device("cuda:0"), card)
+    print(json.dumps({"phase13": "ok", "walk": entry}))
+    return 0
+
+
 def main() -> int:
     t_start = time.perf_counter()
     # phase 1: the card
@@ -2764,6 +3019,11 @@ def main() -> int:
         launches[k] += v
     print(f"phase 12 {time.perf_counter() - t12:.1f} s", flush=True)
 
+    # phase 13: the header walk of one frame on the card
+    walk_entry, got = walk_phase(dev, card)
+    for k, v in got.items():
+        launches[k] += v
+
     sources = {"pack": ("pack.cu", "trpx_tpu/ops/pallas_pack.py:712"),
                "unpack": ("unpack.cu", "trpx_tpu/ops/pallas_unpack.py:626"),
                "pack_tiled": ("pack_tiled.cu",
@@ -2779,6 +3039,8 @@ def main() -> int:
          "bound_ms": _bound_ms(sum(io_bytes[k])),
          "bound_by": "bytes", "library_ms": None}
         for k, (src, replaces) in sources.items()]
+    # the walk replaces no TPU kernel: the JAX package walks on the host
+    kernels.append(walk_entry)
     print(f"total {time.perf_counter() - t_start:.1f} s", flush=True)
     print(card)
     print(json.dumps({"kernels": kernels}))
@@ -2799,4 +3061,6 @@ if __name__ == "__main__":
         sys.exit(_checked_selftest())
     if sys.argv[1:2] == ["--sharded"]:
         sys.exit(_sharded_only(*sys.argv[2:3]))
+    if sys.argv[1:2] == ["--walk"]:
+        sys.exit(_walk_only())
     sys.exit(main())

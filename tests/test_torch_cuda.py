@@ -1096,3 +1096,126 @@ def test_decode_result_memory_by_dtype(cuda, dtype, pinned):
     _same_pixels(out, fr, blob)
     del out
     assert staging.RESULTS.lent == lent
+
+
+# ------------------------------------------------- the header walk ---
+
+
+def _walk_frame_of(shape: str):
+    """One frame of the card walk's checks: a 4362x4148 u32 image on the
+    EIGER2 X 16M's module grid, or a 2048x2048 u32 frame, Poisson(3) with
+    hot pixels at 2,000,000,000."""
+    from trpx_tpu_torch.tools import walk_bench
+
+    if shape == "eiger":
+        return walk_bench.gapped_image(seed=1)
+    return walk_bench.synth(1, 2048 * 2048, np.uint32, 2_000_000_000, seed=3)
+
+
+def _same_walks(got, want):
+    assert (got.rounds, got.headers, got.wmax, got.end_bit) == (
+        want.rounds, want.headers, want.wmax, want.end_bit)
+    if got.rounds is not None:
+        k = min(got.headers, got.widths.shape[1])
+        assert torch.equal(got.widths[:, :k], want.widths[:, :k])
+
+
+@pytest.mark.parametrize("shape", ["eiger", "2048_u32"])
+def test_walk_kernel_matches_plain_and_host(cuda, shape):
+    """``csrc/walk.cu`` against its plain version on the card (rounds,
+    counts, widths, end, widest block) at two part sizes, and against the
+    host walk; then ``decompress`` of the frame takes the card walk and
+    the tiled unpack and returns the frame."""
+    from test_torch_walk import _walk_parts
+    from trpx_tpu_torch import native
+    from trpx_tpu_torch.ops import cuda_walk
+    from trpx_tpu_torch.ops.cuda_walk import (
+        upload_stream,
+        walk_frame,
+        walk_frame_plain,
+    )
+
+    fr = _walk_frame_of(shape)
+    arch = ncodec.encode(fr)
+    spec = FrameSpec.for_dtype(fr.shape[1], np.uint32)
+    P = arch.meta.memory_size
+    words = upload_stream(arch.payload, cuda)
+    assert torch.equal(words.cpu(), upload_stream(arch.payload, "cpu"))
+    rows, _, fst = native.walk_chunk(native.padded_buffer(arch.payload), 0,
+                                     1, spec.n, spec.block, max_width=32)
+    for L in (2048, cuda_walk.WALK_BITS):
+        before = walk_frame.launches
+        with _walk_parts(L):
+            got = walk_frame(spec, words, P)
+            assert walk_frame.launches > before
+            _same_walks(got, walk_frame_plain(spec, words, P))
+        assert got.rounds is not None
+        np.testing.assert_array_equal(got.widths.cpu().numpy(),
+                                      rows.astype(np.uint8))
+        assert got.wmax == rows.max() and 1 + got.end_bit // 8 == fst[1]
+    metrics.reset_counters()
+    out = decompress(arch.to_bytes(), device=cuda)
+    np.testing.assert_array_equal(out.reshape(-1), fr[0])
+    c = metrics.counters()
+    assert c["walks.card"] == 1 and c["frames.decode_batch_tiled"] == 1
+    assert "walks.unsynced" not in c
+
+
+def test_walk_kernel_on_hostile_payloads(cuda):
+    """The one-frame hostile payloads of ``test_torch_walk.py`` (flips,
+    truncations, bursts): the kernel's walk is its plain version's, and
+    the host walk's outcome; at a round cap of 2 and 128-bit parts neither
+    converges."""
+    from test_torch_walk import _host, _hostile_payloads, _walk_parts
+    from trpx_tpu_torch.ops.cuda_walk import (
+        check_walk,
+        upload_stream,
+        walk_frame,
+        walk_frame_plain,
+    )
+
+    spec = FrameSpec.for_dtype(3000, np.uint16)
+    for payload in _hostile_payloads():
+        words = upload_stream(payload, cuda)
+        with _walk_parts(2048):
+            got = walk_frame(spec, words, len(payload))
+            _same_walks(got, walk_frame_plain(spec, words, len(payload)))
+        want = _host(payload, spec, 16)
+        try:
+            check_walk(got, spec.nb, len(payload), 16)
+            assert want[0] == "ok"
+            np.testing.assert_array_equal(got.widths[0].cpu().numpy(),
+                                          want[1])
+        except ValueError as e:
+            assert want == ("raise", str(e))
+    fr = _walk_frame_of("2048_u32")
+    arch = ncodec.encode(fr)
+    spec = FrameSpec.for_dtype(fr.shape[1], np.uint32)
+    words = upload_stream(arch.payload, cuda)
+    with _walk_parts(128, 2):
+        got = walk_frame(spec, words, len(arch.payload))
+        assert got.rounds is None and got.widths is None
+        _same_walks(got, walk_frame_plain(spec, words, len(arch.payload)))
+
+
+def test_decode_walked_on_card_leaves_the_host_walks_tables(cuda):
+    """``ops.decode`` on the card walk leaves the archive's width table
+    (uint8, from pinned memory) and frame index equal to the host walk's,
+    and a second decode of that archive proves them and walks nothing."""
+    from trpx_tpu_torch.ops import coding
+
+    img = _gapped_u32(65)
+    blob = _image_blob(img)
+    a = TrpxArchive.from_bytes(blob)
+    assert coding.walks_on_card(a, FrameSpec.for_dtype(img.size, np.uint32))
+    out = coding.decode(a, np.uint32, device=cuda)
+    np.testing.assert_array_equal(out.reshape(img.shape), img)
+    b = TrpxArchive.from_bytes(blob)
+    coding.walk_archive(b, FrameSpec.for_dtype(img.size, np.uint32))
+    assert a.width_table.dtype == np.uint8
+    np.testing.assert_array_equal(a.width_table, b.width_table)
+    np.testing.assert_array_equal(a.frame_index, b.frame_index)
+    metrics.reset_counters()
+    np.testing.assert_array_equal(
+        coding.decode(a, np.uint32, device=cuda).reshape(img.shape), img)
+    assert "walks.card" not in metrics.counters()

@@ -142,6 +142,14 @@ def load() -> ctypes.CDLL:
             lib.trpx_unpack_tiled.restype = i
             lib.trpx_unpack_tiled.argtypes = [vp, vp, i, i, i, i, i, i, i,
                                               i, i, vp, vp, i, vp]
+            i64 = ctypes.c_int64
+            lib.trpx_walk_scratch_bytes.restype = i64
+            lib.trpx_walk_scratch_bytes.argtypes = [i64, i]
+            lib.trpx_walk_frame.restype = i
+            lib.trpx_walk_frame.argtypes = [vp, i64, i64, i, i, i, i, vp,
+                                            i64, vp, i, vp]
+            lib.trpx_walk_upload.restype = i
+            lib.trpx_walk_upload.argtypes = [vp, vp, i64, i64, i, vp]
             lib.trpx_cuda_error_string.restype = ctypes.c_char_p
             lib.trpx_cuda_error_string.argtypes = [i]
             if _checked:

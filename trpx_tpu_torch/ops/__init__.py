@@ -11,6 +11,7 @@ from .coding import (  # noqa: F401
     TILED_MAX_FRAMES,
     TILED_MIN_BLOCKS,
     TILED_PACK_MAX_FRAMES,
+    WALK_ON_CARD_MIN_BLOCKS,
     FrameSpec,
     InFlight,
     assemble_archive,
@@ -27,6 +28,7 @@ from .coding import (  # noqa: F401
     validate_tables,
     walk_archive,
     walk_chunks,
+    walks_on_card,
 )
 from .cuda_pack import (  # noqa: F401
     encode_batch,

@@ -5,7 +5,10 @@ zero-padded to the block grid, through the calling thread's pinned bounce
 buffers (``ops.staging.upload``), runs the pack kernel on the requested
 device and assembles a byte-exact ``.trpx`` archive on the host. Decode
 walks the archive's block headers and gathers its frames on the host
-(``walk_chunks``), then runs the unpack kernel. Where the JAX package routes by
+(``walk_chunks``), then runs the unpack kernel; ``decode`` of an archive
+of one frame of at least ``WALK_ON_CARD_MIN_BLOCKS`` blocks uploads the
+payload as it is and walks its headers on the card instead
+(``cuda_walk.walk_frame``). Where the JAX package routes by
 ``pallas_ok`` and ``pallas_ok_decode``, this one routes by what an H100
 measured (``route_sweep``): an encode of fewer than ``TILED_PACK_MAX_FRAMES``
 frames of at least ``TILED_MIN_BLOCKS`` blocks each takes the tiled pack
@@ -26,7 +29,7 @@ leaves a record of the route its frames took.
 Each layer of ``encode`` and ``decode`` runs in a span
 (``runtime.metrics.span``: ``trpx.encode.h2d``, ``.kernel``, ``.d2h``,
 ``.assemble``; ``trpx.stream.buffer``, ``.walk``, ``.gather``;
-``trpx.decode.h2d``, ``.kernel``, ``.d2h``, ``.narrow``), so a
+``trpx.decode.h2d``, ``.walk``, ``.kernel``, ``.d2h``, ``.narrow``), so a
 ``torch.profiler`` window over ``compress``/``decompress`` times the path
 by layer, and the spans count the host bytes they write and allocate.
 ``assemble`` opens in :func:`assemble_archive`, the buffer, walk and
@@ -70,7 +73,7 @@ from ..format.pycodec import TrpxArchive, walk_frame
 from ..format.spec import DEFAULT_BLOCK, frame_nbytes
 from ..native import codec as ncodec
 from ..runtime.metrics import count, span
-from . import staging
+from . import cuda_walk, staging
 from .cuda_pack import (
     encode_batch,
     encode_batch_tiled,
@@ -111,6 +114,16 @@ _DEVICE_DTYPES = {
 TILED_MAX_FRAMES = 192
 TILED_PACK_MAX_FRAMES = 4
 TILED_MIN_BLOCKS = -(-2048 * 2048 // DEFAULT_BLOCK)  # a 2048x2048 frame
+
+#: Single frames of at least this many blocks walk their headers on the
+#: card (:func:`decode`): at the crossover of whole decodes of one frame
+#: walked on the host and on the card at 8,192-bit parts on an H100 80GB
+#: HBM3 at 700 W (``tools.walk_bench --card``, two sweeps, PERF.md section
+#: 6): the card won from 21,846 blocks (512x512 u16: 1.37 against 1.45
+#: ms; 1024x1024 u16 1.70 against 2.10; 4362x4148 u32 6.9 against 29.5)
+#: and lost at 10,923 (256x512 u16: 1.35 against 1.13) and 1,366
+#: (128x128 u16: 1.55 against 0.97)
+WALK_ON_CARD_MIN_BLOCKS = 1 << 14
 
 
 def _fits(geometry, spec) -> bool:
@@ -578,8 +591,11 @@ def walk_archive(archive: TrpxArchive, spec: FrameSpec):
 
 
 def decode(archive: TrpxArchive, dtype, *, device) -> np.ndarray:
-    """Host header walk (:func:`walk_chunks`, one run) + unpack on
-    ``device``. Returns (F, n) of ``dtype``.
+    """Header walk + unpack on ``device``. Returns (F, n) of ``dtype``.
+
+    The walk is the host's (:func:`walk_chunks`, one run), or the card's
+    for an archive of one frame of at least ``WALK_ON_CARD_MIN_BLOCKS``
+    blocks that carries no width table (:func:`walks_on_card`).
 
     On a card the result may be page-locked memory, lent from torch's
     caching host allocator while the results that callers hold stay
@@ -596,10 +612,77 @@ def decode(archive: TrpxArchive, dtype, *, device) -> np.ndarray:
         if native.available():
             return ncodec.decode(archive, dtype)
         return pycodec.decode(archive, dtype)
+    device = torch.device(device)
+    if walks_on_card(archive, spec):
+        out = _decode_walked_on_card(archive, spec, dtype, device)
+        if out is not None:
+            return out
     (_, words, widths), = walk_chunks(archive, spec, meta.number_of_frames,
                                       False)
-    p = decode_dispatch(spec, words, widths, torch.device(device), lend=True)
+    p = decode_dispatch(spec, words, widths, device, lend=True)
     return decode_collect(p, dtype)
+
+
+def walks_on_card(archive: TrpxArchive, spec: FrameSpec) -> bool:
+    """True if :func:`decode` walks ``archive``'s headers on the card: one
+    frame, which starts at byte 0, of at least ``WALK_ON_CARD_MIN_BLOCKS``
+    blocks of at most ``cuda_walk.MAX_BLOCK`` values, and no width table
+    and frame index offered (tables offered are :func:`walk_chunks`' to
+    prove, or to warn of and walk)."""
+    table = getattr(archive, "width_table", None)
+    return (archive.meta.number_of_frames == 1
+            and spec.nb >= WALK_ON_CARD_MIN_BLOCKS
+            and spec.block <= cuda_walk.MAX_BLOCK
+            and (table is None
+                 or getattr(archive, "frame_index", None) is None
+                 or table.shape != (1, spec.nb)))
+
+
+def _decode_walked_on_card(archive: TrpxArchive, spec: FrameSpec, dtype,
+                           device: torch.device) -> np.ndarray | None:
+    """:func:`decode` of a one-frame archive whose headers the card walks:
+    the payload's pageable upload (``trpx.decode.h2d``), the walk's
+    launches and round checks and the host's check of its outcome, which
+    raises as the host walk raises (``trpx.decode.walk``), the unpack and
+    the pixels' copy back (:func:`decode_dispatch`), then the widths',
+    behind the pixels, into a pinned block of torch's caching host
+    allocator; the archive's ``width_table`` and ``frame_index`` are left
+    as :func:`walk_chunks` leaves them. Counts ``walks.card`` for a frame
+    walked, ``walks.sync_rounds`` for the rounds after the speculative
+    one, and ``walks.unsynced`` for a walk still unsynchronised at
+    ``cuda_walk.WALK_ROUND_CAP`` rounds, which returns None for the host
+    to walk the frame."""
+    meta = archive.meta
+    with span("trpx.decode.h2d"):
+        words = cuda_walk.upload_stream(archive.payload, device)
+    with span("trpx.decode.walk"):
+        walk = cuda_walk.walk_frame(spec, words, meta.memory_size)
+        if walk.rounds is None:
+            count("walks.sync_rounds", cuda_walk.WALK_ROUND_CAP)
+            count("walks.unsynced")
+            return None
+        count("walks.sync_rounds", walk.rounds)
+        count("walks.card")
+        cuda_walk.check_walk(walk, spec.nb, meta.memory_size,
+                             meta.prolix_bits)
+    p = decode_dispatch(spec, words[None], walk.widths, device, lend=True)
+    done = None
+    with span("trpx.decode.d2h") as s:
+        if device.type == "cpu":
+            table = walk.widths
+        else:
+            before = staging.pinned_total()
+            table = _host_copy(walk.widths, True)
+            done = torch.cuda.Event()
+            done.record(torch.cuda.current_stream(device))
+            s.pinned(staging.pinned_total() - before)
+    out = decode_collect(p, dtype)
+    if done is not None:
+        with span("trpx.decode.d2h"):
+            done.synchronize()
+    archive.width_table = table.numpy()
+    archive.frame_index = np.zeros(1, np.int64)
+    return out
 
 
 def decode_dispatch(spec: FrameSpec, words: torch.Tensor,
