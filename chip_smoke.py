@@ -202,9 +202,21 @@ the tiled unpack. Phases, one line each (more for phases 5 and 6):
    the kernels' widths from the plain version's and the host walk's, and
    (d)'s tiled unpacks join ``unpack_tiled``'s.
 
+14. a Gatan K3 counting-mode movie (``K3_MOVIE``: 40 fractions of
+   5760x4092 u8, Poisson(0.86) counts drawn on the card): ``decompress
+   (dtype=np.uint8)`` of the native codec's archive at the default device,
+   the pixels exact; every frame on ``decode_batch_tiled``
+   (``frames.decode_batch_tiled``) in one launch, the u8 lanes' bytes
+   (``unpack_out_bytes.trpx.decode.kernel``, one a pixel) and a pinned
+   result (``results.pinned``, no ``results.pageable``); then three
+   movies decoded while the two before are held, every one pinned; the
+   host-clock ms of a decode, and the tiled unpack's device ms in u8 lanes
+   beside u16 lanes of the same movie. The first decode's launch joins the
+   kernels line.
+
 ``python3 chip_smoke.py --sharded [a|b]`` builds the kernels and runs
 phase 12 alone (or only its part a or b); ``--walk`` builds them and runs
-phase 13 alone.
+phase 13 alone; ``--counted`` builds them and runs phase 14 alone.
 
 It then prints the card line, a JSON line of per-kernel results and, last,
 ``{"ok": true, "device": {...}}``. Any failure exits non-zero before that
@@ -298,6 +310,12 @@ WALK_IMAGES = 16
 #: device memory rate of an H100 SXM (NVIDIA's data sheet), for the bounds
 HBM_BYTES_PER_S = 3.35e12
 DTYPES = (np.uint8, np.int8, np.uint16, np.int16, np.uint32, np.int32)
+
+
+#: phase 14: a Gatan K3 movie, (fractions, height, width) of counted u8
+#: frames at Poisson(K3_COUNTS) electrons a pixel
+K3_MOVIE = (40, 4092, 5760)
+K3_COUNTS = 0.86
 
 
 def _frames(rng, F, n, dtype=np.uint16, hot=200, hot_value=None):
@@ -1774,9 +1792,11 @@ def race_drill(dev, card: str, calls: int = RACE_CALLS) -> None:
         widths, words = walk_archive(ncodec.encode(fr, block=block), spec)
         wd = torch.from_numpy(widths).to(dev)
         wo = torch.from_numpy(words.view(np.int32)).to(dev)
-        # the unpacks' output: uint16 for u8/u16, else the int32 bits
-        want = torch.from_numpy(fr.astype(np.int64).astype(
-            np.uint16 if decoded_dtype(spec) == torch.uint16 else np.int32))
+        # the unpacks' output: u8's and u16's own lanes, else the int32
+        # bits
+        lanes = {torch.uint8: np.uint8, torch.uint16: np.uint16}.get(
+            decoded_dtype(spec), np.int32)
+        want = torch.from_numpy(fr.astype(np.int64).astype(lanes))
         want = want.to(dev)
         for fn in (decode_batch, decode_batch_tiled):
             jobs.append((f"{fn.__name__} {name}",
@@ -2582,6 +2602,99 @@ def _count_walks() -> dict:
     return {k: c.get(k, 0) for k in ("walks.card", "walks.unsynced")}
 
 
+def counted_phase(dev, card: str) -> dict:
+    """Phase 14: a K3 movie through ``decompress(dtype=np.uint8)`` on the
+    card (module docstring); returns the first decode's launches."""
+    from trpx_tpu_torch import api
+    from trpx_tpu_torch.native import codec as ncodec
+    from trpx_tpu_torch.ops import FrameSpec, decode_batch_tiled, walk_archive
+    from trpx_tpu_torch.runtime import metrics
+    from trpx_tpu_torch.runtime.metrics import device_ms
+
+    F, h, w = K3_MOVIE
+    n = h * w
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    frames = np.empty((F, n), np.uint8)
+    for lo in range(0, F, 4):
+        x = torch.poisson(torch.full((4, n), K3_COUNTS, device=dev),
+                          generator=gen)
+        frames[lo:lo + 4] = x.clamp(max=255).to(torch.uint8).cpu().numpy()
+    arch = ncodec.encode(frames, dimensions=(w, h))
+    blob = arch.to_bytes()
+    want = frames.reshape(F, h, w)
+
+    def decode_counted():
+        before = metrics.counters()
+        out = api.decompress(blob, dtype=np.uint8)
+        after = metrics.counters()
+        return out, {k: v - before.get(k, 0) for k, v in after.items()
+                     if v != before.get(k, 0)}
+
+    _zero_counts()
+    out, got = decode_counted()
+    launches = _read_counts()
+    if out.dtype != np.uint8 or not np.array_equal(out, want):
+        raise AssertionError("phase 14: the K3 movie decoded to other pixels")
+    _expect_route("phase 14 K3 movie", launches, {"unpack_tiled"})
+    if launches["unpack_tiled"] != 1:
+        raise AssertionError(f"phase 14: launches {launches}")
+    routes = {k: v for k, v in got.items() if k.startswith("frames.")}
+    if routes != {"frames.decode_batch_tiled": F}:
+        raise AssertionError(f"phase 14: routes {routes}")
+    if (got.get("unpack_out_bytes.trpx.decode.kernel") != F * n
+            or got.get("results.pinned") != 1 or "results.pageable" in got):
+        raise AssertionError(f"phase 14: counters {got}")
+    del out
+    # three movies, each decoded while the two before it are held
+    held, ms = [], []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        out, got = decode_counted()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        if got.get("results.pinned") != 1 or "results.pageable" in got:
+            raise AssertionError(f"phase 14: with {len(held)} held, "
+                                 f"counters {got}")
+        held = (held + [out])[-2:]
+    del held, out
+    spec = FrameSpec.for_dtype(n, np.uint8)
+    wide = FrameSpec.for_dtype(n, np.uint16)
+    widths, words = walk_archive(arch, spec)
+    wd = torch.from_numpy(widths).to(dev)
+    wo = torch.from_numpy(words.view(np.int32)).to(dev)
+    lanes_ms = {name: device_ms(
+        lambda: decode_batch_tiled(sp, wo, wd, odt), 5)
+        for name, sp, odt in (("u8", spec, torch.uint8),
+                              ("u16", wide, torch.uint16))}
+    moved = {k: (arch.meta.memory_size + F * n * b) / 1e6
+             for k, b in (("u8", 1), ("u16", 2))}
+    print(f"phase 14 K3 movie ({card}): {F}x{h}x{w} u8, ratio "
+          f"{arch.meta.memory_size / frames.nbytes:.4f}, exact, one tiled "
+          f"unpack, pinned results with two held; decompress "
+          f"{statistics.median(ms):.1f} ms (host clock, median of 3); tiled "
+          f"unpack device ms: u8 lanes {lanes_ms['u8']:.4f} "
+          f"({moved['u8']:.1f} MB, bound {_bound_ms(moved['u8'] * 1e6):.4f}),"
+          f" u16 lanes {lanes_ms['u16']:.4f} ({moved['u16']:.1f} MB, bound "
+          f"{_bound_ms(moved['u16'] * 1e6):.4f})", flush=True)
+    return launches
+
+
+def _counted_only() -> int:
+    """``--counted``: build the kernels and run phase 14 alone."""
+    from trpx_tpu_torch import _build
+
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        check=True, capture_output=True, text=True).stdout.strip()
+    cxx = os.environ.get("CXX")
+    if cxx and not _builds_openmp(cxx):
+        del os.environ["CXX"]
+    _build.build()
+    _build.load()
+    counted_phase(torch.device("cuda:0"), card)
+    print(json.dumps({"phase14": "ok"}))
+    return 0
+
+
 def _walk_only() -> int:
     """``--walk``: build the kernels and run phase 13 alone."""
     from trpx_tpu_torch import _build
@@ -2895,7 +3008,7 @@ def main() -> int:
         bits = pack(spec, x)[1]
         stream = 4 * int(defined_words(bits).sum().item())
         pixels_in = x.numel() * x.element_size()
-        pixels_out = F * spec.n * (2 if odt == torch.uint16 else 4)
+        pixels_out = F * spec.n * odt.itemsize
         return {"pack": (pixels_in, stream + 8 * F),
                 "unpack": (stream + wd.numel(), pixels_out)}
 
@@ -3024,6 +3137,10 @@ def main() -> int:
     for k, v in got.items():
         launches[k] += v
 
+    # phase 14: a Gatan K3 movie in u8 lanes
+    for k, v in counted_phase(dev, card).items():
+        launches[k] += v
+
     sources = {"pack": ("pack.cu", "trpx_tpu/ops/pallas_pack.py:712"),
                "unpack": ("unpack.cu", "trpx_tpu/ops/pallas_unpack.py:626"),
                "pack_tiled": ("pack_tiled.cu",
@@ -3063,4 +3180,6 @@ if __name__ == "__main__":
         sys.exit(_sharded_only(*sys.argv[2:3]))
     if sys.argv[1:2] == ["--walk"]:
         sys.exit(_walk_only())
+    if sys.argv[1:2] == ["--counted"]:
+        sys.exit(_counted_only())
     sys.exit(main())

@@ -289,6 +289,43 @@ def test_tiled_unpack_kernel_matches_plain(cuda, dtype, n, tile_blocks):
         .cpu().numpy().astype(dtype), fr)
 
 
+#: u8 frames whose rows start at bytes of every remainder mod 16 (odd n)
+#: and one Gatan K3 counted frame (5760x4092)
+U8_CASES = [(3, 1001), (5, 37 * 53), (4, 64 * 12 * 3 + 101),
+            (1, 5760 * 4092)]
+
+
+def _counted(F, n, seed):
+    """(F, n) u8: Poisson(0.86) counts, one pixel at 255, one row of 0."""
+    rng = np.random.default_rng(seed)
+    fr = rng.poisson(0.86, (F, n)).astype(np.uint8)
+    fr[0, rng.integers(0, n)] = 255
+    fr[-1, : min(n, 40)] = 0
+    return fr
+
+
+@pytest.mark.parametrize("F,n", U8_CASES)
+def test_u8_lanes_of_both_unpacks_match_plain(cuda, F, n):
+    """Both unpack kernels in u8 lanes at their default tiles (the tiled
+    one also at 64-block tiles) equal their plain versions and the frames,
+    rows starting at any byte."""
+    fr = _counted(F, n, seed=n)
+    spec = FrameSpec.for_dtype(n, np.uint8)
+    assert decoded_dtype(spec) == torch.uint8
+    widths, words = walk_archive(ncodec.encode(fr), spec)
+    wd = torch.from_numpy(widths).to(cuda)
+    wo = torch.from_numpy(words.view(np.int32)).to(cuda)
+    for fn, plain, tile in (
+            (decode_batch, decode_batch_plain, ()),
+            (decode_batch_tiled, decode_batch_tiled_plain, ()),
+            (decode_batch_tiled, decode_batch_tiled_plain, (64,))):
+        got = fn(spec, wo, wd, torch.uint8, *tile)
+        assert got.dtype == torch.uint8 and got.shape == (F, n)
+        assert torch.equal(got, plain(spec, wo, wd, torch.uint8, *tile))
+        np.testing.assert_array_equal(got.cpu().numpy(), fr)
+        del got
+
+
 def _both_tiled_kernels(spec, fr, cuda):
     """Both tiled kernels at their default geometry against their plain
     versions (and the untiled plain pack) on frames `fr`, and the decode
@@ -1076,13 +1113,13 @@ def test_decode_over_the_budget_is_pageable(cuda, monkeypatch):
 
 @pytest.mark.parametrize("dtype,pinned", [
     (np.uint32, True), (np.int32, True), (np.uint16, True),
-    (np.uint8, False), (np.int16, False), (np.int8, False)])
+    (np.uint8, True), (np.int16, False), (np.int8, False)])
 def test_decode_result_memory_by_dtype(cuda, dtype, pinned):
-    """Results in the unpack's own lanes (u16; i32, and i32 lanes read as
-    u32) are views of the lent pinned block; a narrowing into a smaller
-    type copies into pageable memory, and the block's loan ends with the
-    call. Pixels equal the frames, the native codec's and the pageable
-    path's either way."""
+    """Results in the unpack's own lanes (u8, u16; i32, and i32 lanes read
+    as u32) are views of the lent pinned block; a narrowing of i32 lanes
+    into i8 or i16 copies into pageable memory, and the block's loan ends
+    with the call. Pixels equal the frames, the native codec's and the
+    pageable path's either way."""
     from trpx_tpu_torch.ops import staging
 
     fr = _frames(dtype, 512 * 512, 71)

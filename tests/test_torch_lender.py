@@ -19,8 +19,30 @@ from trpx_tpu_torch.runtime import metrics
 
 
 def test_the_budget_is_a_gibibyte():
-    assert staging.PINNED_RESULT_BYTES == 1 << 30
+    """Four blocks of a gibibyte: a movie of 40 Gatan K3 frames (5760x4092
+    u8) takes one."""
+    assert staging.PINNED_RESULT_BYTES == 4 << 30
     assert isinstance(staging.RESULTS, staging.Lender)
+
+
+def test_movies_held_while_the_next_is_lent():
+    """At the budget's scale over 2**20: a consumer holds two movies' results
+    (the one it processes, one a check keeps) while a third decodes, and
+    still a fourth; a fifth would pass the budget."""
+    scale = 1 << 20
+    movie = 40 * 5760 * 4092 // scale
+    budget = staging.PINNED_RESULT_BYTES // scale
+    lender = staging.Lender()
+    held = [lender.take((movie,), torch.uint8, False, budget)
+            for _ in range(2)]
+    assert lender.lent == 2 * 1024
+    third = lender.take((movie,), torch.uint8, False, budget)
+    assert third is not None and lender.lent == 3 * 1024
+    fourth = lender.take((movie,), torch.uint8, False, budget)
+    assert fourth is not None and lender.lent == budget
+    assert lender.take((movie,), torch.uint8, False, budget) is None
+    del held, third, fourth
+    assert lender.lent == 0
 
 
 @pytest.mark.parametrize("shape,dtype,block", [

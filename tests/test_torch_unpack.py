@@ -185,6 +185,8 @@ def _kernel_reads(spec, words, widths, tile_blocks, tiled, out_dtype):
                         if spec.signed and w and u >> (w - 1):
                             u |= 0xFFFFFFFF ^ ((1 << w) - 1)
                     out[f, v] = u
+    if out_dtype == torch.uint8:
+        return (out & 0xFF).astype(np.uint8)
     if out_dtype == torch.uint16:
         return (out & 0xFFFF).astype(np.uint16)
     return (out & 0xFFFFFFFF).astype(np.uint32).view(np.int32)

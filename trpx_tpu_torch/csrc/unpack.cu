@@ -25,10 +25,10 @@
 //      word range [P / 32, (P + bits) / 32 + 2) (16-byte loads into shared
 //      memory), scans the widths into block offsets, then extracts its
 //      values from shared memory, 16 bytes of output per thread and step
-//      (8 uint16 or 4 int32) stored with one vector store. The block size
-//      12 (DEFAULT_BLOCK) is a compile-time constant, so the value -> block
-//      division is one multiply; other block sizes take the generic
-//      instance of the same kernel.
+//      (16 uint8, 8 uint16 or 4 int32) stored with one vector store. The
+//      block size 12 (DEFAULT_BLOCK) is a compile-time constant, so the
+//      value -> block division is one multiply; other block sizes take the
+//      generic instance of the same kernel.
 // Word reads are clamped to the frame's row, as in the plain version, so
 // inconsistent tables cannot read outside it; they are also clamped to
 // the words staged, which only widths wider than the target type (tables
@@ -178,7 +178,9 @@ cudaError_t launch_block(const void* words, const void* widths, int F, int W,
 // Decodes F frames in tiles of `tile_blocks` >= 32 blocks: `words` (F, W)
 // uint32 streams with W >= 2 and at least two words after each stream's
 // last bit, `widths` (F, nb) uint8 block widths, into `out` (F, n) of
-// uint16 (out_u16, unsigned targets of at most 16 bits) or int32.
+// `lane_bytes`-byte lanes: uint8 (1, unsigned targets of at most 8 bits),
+// uint16 (2, unsigned targets of at most 16 bits) or int32 (4). Rows start
+// at any byte: each row's ragged ends are stored a value at a time.
 // Sign-extends iff `is_signed`. `max_width` is the target's widest field
 // (shared memory is sized for it). Scratch: `tile_start` (F, tiles + 1)
 // int32. `smem_bytes` must be the dynamic shared memory of an unpack_tiles
@@ -187,13 +189,15 @@ cudaError_t launch_block(const void* words, const void* widths, int F, int W,
 extern "C" int trpx_unpack(const void* words, const void* widths, int F,
                            int W, int n, int block, int tile_blocks,
                            int max_width, int smem_bytes, int is_signed,
-                           int out_u16, void* out, void* tile_start,
+                           int lane_bytes, void* out, void* tile_start,
                            int device, void* stream) {
   const trpx::DeviceGuard guard;  // restores the caller's device
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return int(err);
   if (F <= 0 || n <= 0 || block <= 0 || W < 2 || tile_blocks < 32 ||
-      max_width <= 0 || (out_u16 && is_signed)) {
+      max_width <= 0 || (lane_bytes != 1 && lane_bytes != 2 &&
+                         lane_bytes != 4) ||
+      (lane_bytes != 4 && is_signed)) {
     return int(cudaErrorInvalidValue);
   }
   const int nb = (n - 1) / block + 1;
@@ -203,7 +207,11 @@ extern "C" int trpx_unpack(const void* words, const void* widths, int F,
   if (sm.total != smem_bytes) return int(cudaErrorInvalidValue);
   int* ts = static_cast<int*>(tile_start);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (out_u16) {
+  if (lane_bytes == 1) {
+    err = trpx::launch_block<uint8_t, false>(words, widths, F, W, n, block,
+                                             nb, tiles, tile_blocks, sm, ts,
+                                             out, device, s);
+  } else if (lane_bytes == 2) {
     err = trpx::launch_block<uint16_t, false>(words, widths, F, W, n, block,
                                               nb, tiles, tile_blocks, sm, ts,
                                               out, device, s);

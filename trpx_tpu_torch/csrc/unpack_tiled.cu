@@ -9,7 +9,7 @@
 // sign-extended iff the target is signed.
 //
 // Bound on the H100: bytes moved: the compressed words and 1 byte of width
-// per block in, 2 or 4 bytes per value out (66 MB in and 537 MB out for 8
+// per block in, 1, 2 or 4 bytes per value out (66 MB in and 537 MB out for 8
 // frames of 4096x4096 u32), against a few integer operations per value.
 //
 // Where unpack.cu is weak this kernel is not: unpack.cu finds its tiles'
@@ -219,7 +219,9 @@ cudaError_t launch_block(const void* words, const void* widths, int F, int W,
 // Decodes F frames in tiles of `tile_blocks` blocks: `words` (F, W)
 // uint32 streams with W >= 2 and at least two words after each stream's
 // last bit, `widths` (F, nb) uint8 block widths, into `out` (F, n) of
-// uint16 (out_u16, unsigned targets of at most 16 bits) or int32.
+// `lane_bytes`-byte lanes: uint8 (1, unsigned targets of at most 8 bits),
+// uint16 (2, unsigned targets of at most 16 bits) or int32 (4). Rows start
+// at any byte: each row's ragged ends are stored a value at a time.
 // Sign-extends iff `is_signed`. `max_width` is the target's widest field
 // (shared memory is sized for it). A tile of one block of more than
 // kTileValues values is decoded in chunks of kTileValues values, a tile of
@@ -232,14 +234,17 @@ cudaError_t launch_block(const void* words, const void* widths, int F, int W,
 extern "C" int trpx_unpack_tiled(const void* words, const void* widths,
                                  int F, int W, int n, int block,
                                  int tile_blocks, int max_width,
-                                 int smem_bytes, int is_signed, int out_u16,
+                                 int smem_bytes, int is_signed,
+                                 int lane_bytes,
                                  void* scratch, void* out, int device,
                                  void* stream) {
   const trpx::DeviceGuard guard;  // restores the caller's device
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return int(err);
   if (F <= 0 || n <= 0 || block <= 0 || W < 2 || tile_blocks <= 0 ||
-      max_width <= 0 || (out_u16 && is_signed)) {
+      max_width <= 0 || (lane_bytes != 1 && lane_bytes != 2 &&
+                         lane_bytes != 4) ||
+      (lane_bytes != 4 && is_signed)) {
     return int(cudaErrorInvalidValue);
   }
   const int nb = (n - 1) / block + 1;
@@ -254,7 +259,11 @@ extern "C" int trpx_unpack_tiled(const void* words, const void* widths,
   int* part = static_cast<int*>(scratch);
   int* start = part + size_t(F) * T;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (out_u16) {
+  if (lane_bytes == 1) {
+    err = trpx::launch_block<uint8_t, false>(words, widths, F, W, n, block,
+                                             nb, T, tile_blocks, sm, part,
+                                             start, out, device, s);
+  } else if (lane_bytes == 2) {
     err = trpx::launch_block<uint16_t, false>(words, widths, F, W, n, block,
                                               nb, T, tile_blocks, sm, part,
                                               start, out, device, s);

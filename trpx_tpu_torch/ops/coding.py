@@ -24,7 +24,10 @@ tensors. ``encode_dispatch`` and ``decode_dispatch`` count the frames of
 each launch under the wrapper that took them (``runtime.metrics.count``:
 ``frames.encode_batch``, ``frames.encode_batch_tiled``,
 ``frames.decode_batch``, ``frames.decode_batch_tiled``), so every caller
-leaves a record of the route its frames took.
+leaves a record of the route its frames took; ``decode_dispatch`` also
+counts the bytes each unpack writes on the device
+(``unpack_out_bytes.trpx.decode.kernel``). An unsigned target of 8 or 16
+bits is decoded in its own lanes, which the host returns as they are.
 
 Each layer of ``encode`` and ``decode`` runs in a span
 (``runtime.metrics.span``: ``trpx.encode.h2d``, ``.kernel``, ``.d2h``,
@@ -692,8 +695,10 @@ def decode_dispatch(spec: FrameSpec, words: torch.Tensor,
     """Copy host ``words`` (F, W) int32 and ``widths`` (F, nb) uint8 to
     ``device`` and launch the unpack kernel there on the current stream
     (``decode_batch_tiled`` when ``spec.tiled(F)``, else
-    ``decode_batch``), counting its F frames in ``frames.<wrapper>``;
-    with ``fetch``, start copying the (F, n) output back: into pinned
+    ``decode_batch``), counting its F frames in ``frames.<wrapper>`` and
+    the bytes its output takes on the device (in the lanes of
+    ``decoded_dtype``) in ``unpack_out_bytes.trpx.decode.kernel``; with
+    ``fetch``, start copying the (F, n) output back: into pinned
     memory when ``pin``; with ``lend`` on a card, into a pinned tensor
     lent to the caller (``staging.RESULTS``) while the results lent stay
     within ``staging.PINNED_RESULT_BYTES`` (counted in
@@ -709,6 +714,7 @@ def decode_dispatch(spec: FrameSpec, words: torch.Tensor,
     count("frames." + kernel.__name__, len(x))
     with span("trpx.decode.kernel"):
         out = kernel(spec, x, w, decoded_dtype(spec))
+    count("unpack_out_bytes.trpx.decode.kernel", out.nbytes)
     with span("trpx.decode.d2h") as s:
         host = ()
         if fetch and device.type == "cpu":

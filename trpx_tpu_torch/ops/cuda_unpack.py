@@ -11,10 +11,12 @@ runs its plain version (``decode_batch_plain``,
 ``decode_batch_tiled_plain``). Inputs are the
 host walk's outputs: ``words`` (F, W) int32 holding each frame's uint32
 stream words (at least two words past each stream's last bit) and
-``widths`` (F, nb) uint8. The output is flat (F, n): uint16 for unsigned
-targets of at most 16 bits, else int32 (sign-extended iff the target spec
-is signed; a 33-bit field keeps its low 32 bits). The host narrows it to
-the target dtype (``coding.narrow_values``).
+``widths`` (F, nb) uint8. The output is flat (F, n) in the lanes of
+:func:`decoded_dtype`: uint8 for unsigned targets of at most 8 bits,
+uint16 for those of at most 16, else int32 (sign-extended iff the target
+spec is signed; a 33-bit field keeps its low 32 bits). The host narrows
+int32 lanes to the target dtype (``coding.narrow_values``); unsigned
+lanes are the target's own, and pass as they are.
 
 The plain versions derive each block's bits from the widths as
 ``trpx_tpu/ops/pallas_unpack.py:block_bits_host`` does, take their
@@ -49,7 +51,11 @@ from .cuda_pack import (
 
 
 def decoded_dtype(spec) -> torch.dtype:
-    """The unpack output type for a target spec."""
+    """The unpack output type for a target spec: the unsigned target's own
+    type for u8 and u16, int32 for the rest (the 9- and 17-bit fields of
+    i8 and i16 need the host's clamp)."""
+    if not spec.signed and spec.max_width <= 8:
+        return torch.uint8
     if not spec.signed and spec.max_width <= 16:
         return torch.uint16
     return torch.int32
@@ -153,6 +159,8 @@ def _extract(spec, words: torch.Tensor, w: torch.Tensor,
         neg = (w > 0) & (w < 32) & (top == 1)
         u = torch.where(neg, u | (0xFFFFFFFF ^ mask), u)
     u = u.reshape(F, -1)[:, : spec.n]
+    if out_dtype == torch.uint8:
+        return (u & 0xFF).to(torch.uint8)
     if out_dtype == torch.uint16:
         return torch.where(u >= 2**15, u - 2**16, u).to(torch.int16).view(
             torch.uint16)
@@ -232,7 +240,7 @@ def decode_batch(spec, words: torch.Tensor, widths: torch.Tensor,
     rc = lib.trpx_unpack(
         words.data_ptr(), widths.data_ptr(), F, W, spec.n, spec.block,
         tile_blocks, spec.max_width, smem, int(spec.signed),
-        int(out_dtype == torch.uint16), out.data_ptr(), tile_start.data_ptr(),
+        out.element_size(), out.data_ptr(), tile_start.data_ptr(),
         dev.index, torch.cuda.current_stream(dev).cuda_stream)
     _build.check(rc, "unpack")
     _build.count_launch(decode_batch)
@@ -274,7 +282,7 @@ def decode_batch_tiled(spec, words: torch.Tensor, widths: torch.Tensor,
     rc = lib.trpx_unpack_tiled(
         words.data_ptr(), widths.data_ptr(), F, W, spec.n, spec.block,
         tile_blocks, spec.max_width, smem, int(spec.signed),
-        int(out_dtype == torch.uint16), scratch.data_ptr(), out.data_ptr(),
+        out.element_size(), scratch.data_ptr(), out.data_ptr(),
         dev.index, torch.cuda.current_stream(dev).cuda_stream)
     _build.check(rc, "tiled unpack")
     _build.count_launch(decode_batch_tiled)

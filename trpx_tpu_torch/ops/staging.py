@@ -43,8 +43,11 @@ BOUNCE_BYTES = 32 << 20
 
 #: most bytes of pinned host memory that the results of synchronous
 #: decodes on a card may hold at once (:data:`RESULTS`); a decode whose
-#: result would pass it returns pageable memory
-PINNED_RESULT_BYTES = 1 << 30
+#: result would pass it returns pageable memory. A movie of 40 Gatan K3
+#: frames (5760x4092 u8, 943 MB) takes a block of 1 GiB: four such
+#: blocks let a consumer hold the movie it is processing, and a sample
+#: of others, while the next one decodes
+PINNED_RESULT_BYTES = 4 << 30
 
 
 class Lender:
